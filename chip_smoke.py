@@ -17,9 +17,16 @@ failure of which exits non-zero:
    just after; the same run on the plain backend must agree, and the
    1 kHz test tone must come back (frequency and SINAD);
 4. the host-fed StreamExecutor with a retune and a partial last block;
-5. times from CUDA events after warm-up: each kernel, its plain version
+5. the fused path: ``WBFMConfig(fused=True)`` (WBFMFrontend on the
+   rotated-taps kernel B2) over the same 8 blocks, without and with a
+   squelch, counted like phase 3; against its plain backend, the tone,
+   and the unfused fractional chain (B1) on ``quad``;
+6. StreamPump over the fused chain, 16 host blocks at ``inflight`` 1 and
+   3, against the Flowgraph run; ``dispatch`` returning while the card
+   is busy; a checkpoint after block 8 restored into a fresh executor;
+7. times from CUDA events after warm-up: each kernel, its plain version
    and the one-call library equivalent where there is one, beside its
-   bound; the chain's step time and Msamp/s; the resampler's two forms;
+   bound; both chains' step time and Msamp/s; the resampler's two forms;
    a torch.profiler breakdown of chain steps (``chiprun_out/``).
 
 The last lines are the kernel table as JSON, the card's name and power
@@ -40,12 +47,15 @@ import numpy as np
 import torch
 
 from grbaz_tpu_torch.core.executor import InputSpec, StreamExecutor
+from grbaz_tpu_torch.core.pump import StreamPump
 from grbaz_tpu_torch.core.stream import Stream
-from grbaz_tpu_torch.models.wbfm import WBFMConfig, build_wbfm
+from grbaz_tpu_torch.models.wbfm import WBFMConfig, WBFMFrontend, build_wbfm
 from grbaz_tpu_torch.ops import exact, fir
 from grbaz_tpu_torch.ops.cuda import build
 from grbaz_tpu_torch.ops.cuda import fir_decimate as fd
 from grbaz_tpu_torch.ops.cuda import xlating_fir as xf
+from grbaz_tpu_torch.ops.cuda import xlating_fir_ctaps as xc
+from grbaz_tpu_torch.ops.wbfm_frontend import rotated_taps
 from grbaz_tpu_torch.ops.fir import FreqXlatingFIRDecimator
 from grbaz_tpu_torch.ops.resampler import (FractionalResampler,
                                            resample_block,
@@ -73,11 +83,16 @@ KERNELS = {  # wrapper -> (source, replaced TPU kernel)
     "fir_decimate_frame": (
         fd.fir_decimate_frame, "grbaz_tpu_torch/csrc/fir_decimate.cu",
         "grbaz_tpu/ops/pallas/fir_kernel.py:113"),
+    "xlating_fir_ctaps_block": (
+        xc.xlating_fir_ctaps_block, "grbaz_tpu_torch/csrc/xlating_fir_ctaps.cu",
+        "grbaz_tpu/ops/pallas/wbfm_frontend.py:218"),
 }
-# kernels the cascade main path launches; xlating_fir_frame_rtf is the
+# kernels each path launches; xlating_fir_frame_rtf is the
 # frame-convention entry point of the channelizer kernel, which the JAX
 # package calls only from its tests
 MAIN_PATH_KERNELS = ("xlating_fir_block", "fir_decimate_frame")
+FUSED_PATH_KERNELS = ("xlating_fir_ctaps_block",)
+PUMP_BLOCKS = 16
 
 
 def check(ok: bool, what: str) -> None:
@@ -216,7 +231,7 @@ def kernel_cases(dev):
     planar = [torch.view_as_real(f).T.contiguous()[:, None]
               for f in frames]
     rot_flops = 6 * BLOCK + 4 * tpad * n_out
-    return [
+    return [ctaps_case(h_chan, inc, tail, xs),
         dict(name="xlating_fir_block",
              kernel=lambda i: xf.xlating_fir_block(
                  xs[i % len(xs)], tail, h_chan, DECIM, phase0, inc),
@@ -250,6 +265,28 @@ def kernel_cases(dev):
              nbytes=8 * (tpad - 1 + BLOCK) + 4 * tpad + 8 * n_out,
              flops=4 * tpad * n_out),
     ]
+
+
+def ctaps_case(h_chan, inc, tail, xs):
+    """B2 at the fused path's shape; its library yardstick is one
+    complex ``conv1d`` (stride decim) with the rotated taps."""
+    tpad = h_chan.shape[0]
+    n_out = BLOCK // DECIM
+    g = rotated_taps(h_chan, inc)
+    frames = [torch.cat([tail[1:], x])[None, None] for x in xs]
+
+    def library(i):
+        return torch.nn.functional.conv1d(frames[i % len(frames)],
+                                          g[None, None], stride=DECIM)
+
+    return dict(name="xlating_fir_ctaps_block",
+                kernel=lambda i: xc.xlating_fir_ctaps_block(
+                    xs[i % len(xs)], tail, h_chan, DECIM, inc),
+                plain=lambda i: xc.xlating_fir_ctaps_block_plain(
+                    xs[i % len(xs)], tail, h_chan, DECIM, inc),
+                library=library,
+                nbytes=8 * BLOCK + 12 * tpad + 8 * n_out + 8,
+                flops=8 * tpad * n_out)
 
 
 def check_kernels(cases):
@@ -358,12 +395,173 @@ def executor_phase(dev, iq, cfg, kern):
           f"{ex.throughput() / 1e6:.2f} Msamp/s host-observed")
 
 
+def gate_flips(got, ref, rel, limit=8):
+    """Samples of ``got`` that differ from ``ref`` beyond ``rel`` of its
+    peak must be squelch-gate flips (zero on one side), at most
+    ``limit``; returns (max-abs error, number of flips)."""
+    diff = (got - ref).abs()
+    bad = torch.nonzero(diff > rel * float(ref.abs().max())).flatten()
+    check(len(bad) <= limit, f"{len(bad)} samples differ (bar {limit} flips)")
+    check(all(float(got[i]) == 0.0 or float(ref[i]) == 0.0 for i in bad),
+          "a sample differs beyond the bar and is not a gate flip")
+    return float(diff.max()), len(bad)
+
+
+def fused_path(dev, iq):
+    """The fused chain over the main path's blocks, squelch off and on."""
+    launches = {}
+    for squelch in (None, -20.0):
+        cfg = WBFMConfig(block_size=BLOCK, fused=True, center_freq=STATION_HZ,
+                         squelch_db=squelch)
+        for fn, _, _ in KERNELS.values():
+            fn.launches = 0
+        _, kern = run_chain(cfg, dev, iq, N_BLOCKS)
+        counts = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+        print(f"fused path (squelch {squelch}) launches over {N_BLOCKS} "
+              f"blocks: {counts}")
+        for name in KERNELS:
+            want = N_BLOCKS if name in FUSED_PATH_KERNELS else 0
+            check(counts[name] == want, f"fused path launched {name} "
+                  f"{counts[name]} times, not {want}")
+        if squelch is None:
+            launches = counts
+        _, plain = run_chain(dataclasses.replace(cfg, fused_backend="plain"),
+                             dev, iq, N_BLOCKS)
+        check(all(fn.launches == counts[n]
+                  for n, (fn, _, _) in KERNELS.items()),
+              "the plain fused backend launched a kernel")
+        for port in ("audio", "quad"):
+            a, b = valid(kern, port), valid(plain, port)
+            check([len(v) for v in a] == [len(v) for v in b],
+                  f"fused {port} counts")
+            ka, pb = torch.cat(a), torch.cat(b)
+            check(bool(torch.isfinite(ka).all()), f"fused {port} finite")
+            if squelch is None:
+                err, flips = float((ka - pb).abs().max()), 0
+                check(err < 1e-4 * float(pb.abs().max()),
+                      f"fused {port}: kernel and plain backends differ")
+            else:
+                err, flips = gate_flips(ka, pb, 1e-4)
+            print(f"fused path (squelch {squelch}) {port}: {ka.numel()} "
+                  f"samples, kernel vs plain max_abs_err {err:.3e} "
+                  f"(bar {1e-4 * float(pb.abs().max()):.3e}), "
+                  f"{flips} gate flips")
+        audio = torch.cat(valid(kern, "audio")[1:]).cpu().numpy()
+        f, sinad = tone_sinad(audio, cfg.audio_rate)
+        print(f"fused path (squelch {squelch}) tone: {f:.2f} Hz, SINAD "
+              f"{sinad:.2f} dB over {len(audio)} audio samples")
+        check(abs(f - TONE_HZ) < 5.0, "fused tone frequency")
+        check(sinad > 40.0, "fused tone SINAD")
+        if squelch is None:
+            fused_quad = torch.cat(valid(kern, "quad"))
+    # B2 against B1: the unfused fractional chain's quad
+    _, unfused = run_chain(WBFMConfig(block_size=BLOCK, center_freq=STATION_HZ),
+                           dev, iq, N_BLOCKS)
+    uq = torch.cat(valid(unfused, "quad"))
+    check(uq.shape == fused_quad.shape, "fused and unfused quad counts")
+    err = float((fused_quad[1:] - uq[1:]).abs().max())
+    print(f"fused quad vs unfused (B1) quad after the first sample: "
+          f"max_abs_err {err:.3e} (bar 1e-4)")
+    check(err < 1e-4, "the fused and unfused chains differ on quad")
+    return launches
+
+
+def pump_phase(dev):
+    """StreamPump over the fused chain at two depths, the async dispatch,
+    and checkpoint / resume, all against the Flowgraph run."""
+    cfg = WBFMConfig(block_size=BLOCK, fused=True, center_freq=STATION_HZ)
+    iq = synth_fm(PUMP_BLOCKS * BLOCK, dev, seed=2)
+    _, ref = run_chain(cfg, dev, iq, PUMP_BLOCKS)
+    ref_q = [q.cpu().numpy() for q in valid(ref, "quad")]
+    ref_a = [a.cpu().numpy() for a in valid(ref, "audio")]
+    host = iq.cpu().numpy()
+    blocks = [{"iq": host[b * BLOCK:(b + 1) * BLOCK]}
+              for b in range(PUMP_BLOCKS)]
+    del iq, ref
+
+    def executor():
+        fg, _ = build_wbfm(cfg, device=dev)
+        return StreamExecutor(fg, {"iq": InputSpec((BLOCK,), "complex64", FS)},
+                              device=dev)
+
+    for inflight in (1, 3):
+        ex = executor()
+        ex.step(blocks[0])  # warm-up, not counted
+        ex.reset()
+        feed = list(blocks)
+        got = dict(quad=[], audio=[])
+        pump = StreamPump(
+            ex, lambda: feed.pop(0) if feed else None,
+            {p: (lambda p: lambda d, c: got[p].append(d[:c]))(p)
+             for p in got}, inflight=inflight)
+        t0 = time.perf_counter()
+        pump.start()
+        deadline = t0 + 120.0
+        while pump.stats()["blocks_out"] < PUMP_BLOCKS \
+                and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        secs = time.perf_counter() - t0
+        pump.stop()
+        st = pump.stats()
+        print(f"pump inflight={inflight}: {st}, {secs:.4f} s, "
+              f"{PUMP_BLOCKS * BLOCK / secs / 1e6:.2f} Msamp/s host-observed")
+        check(st["blocks_in"] == st["blocks_out"] == PUMP_BLOCKS,
+              f"pump inflight={inflight} block counts")
+        check(st["overruns"] == 0 and st["underruns"] == 0, "pump overruns")
+        check(all(np.array_equal(a, b) for a, b in zip(got["quad"], ref_q))
+              and all(np.array_equal(a, b)
+                      for a, b in zip(got["audio"], ref_a)),
+              f"pump inflight={inflight} differs from the Flowgraph run")
+
+    # dispatch must not wait for the card, even with a retune written
+    # into ex.params as host (numpy) values
+    ex = executor()
+    ex.params["frontend"] = dict(ex.params["frontend"],
+                                 **WBFMFrontend.freq_params(STATION_HZ, FS))
+    ex.step(blocks[0])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e9))  # ~0.5 s of card time
+    t0 = time.perf_counter()
+    outs = ex.dispatch(blocks[1])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    done = torch.cuda.Event()
+    done.record()
+    busy = not done.query()
+    ex.fetch(outs)
+    print(f"dispatch returned in {host_ms:.3f} ms with the step still "
+          f"queued on the card: {busy}")
+    check(busy, "dispatch waited for the card")
+
+    # checkpoint after block 8, resumed in a fresh executor
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "pump_checkpoint.npz")
+    half = PUMP_BLOCKS // 2
+    ex = executor()
+    for b in blocks[:half]:
+        ex.step(b)
+    ex.save(path, extra=dict(blocks_done=half))
+    cont = [ex.step(b) for b in blocks[half:]]
+    fresh = executor()
+    extra = fresh.restore(path)
+    os.remove(path)
+    check(int(extra["blocks_done"]) == half, "checkpoint extra")
+    resumed = [fresh.step(b) for b in blocks[half:]]
+    same = all(np.array_equal(a[p][0], b[p][0]) and a[p][1] == b[p][1]
+               for a, b in zip(cont, resumed) for p in ("quad", "audio"))
+    check(same, "resumed blocks differ from the uninterrupted run")
+    check(all(np.array_equal(r["quad"][0][:r["quad"][1]], q)
+              for r, q in zip(resumed, ref_q[half:])),
+          "resumed blocks differ from the Flowgraph run")
+    print(f"checkpoint after block {half}: blocks {half + 1}-{PUMP_BLOCKS} "
+          f"of a fresh executor bit-equal to the uninterrupted run")
+
+
 def chain_runner(dev, iq, cfg, backend):
     """A function ``run(steps)`` that runs that many chained steps of the
     chain on ``backend`` and returns the CUDA-event ms per step. Every
     block's audio feeds a checksum, so no stage is dead code."""
-    fg, _ = build_wbfm(dataclasses.replace(cfg, chan_backend=backend),
-                       device=dev)
+    fg, _ = build_wbfm(dataclasses.replace(cfg, chan_backend=backend,
+                                           fused_backend=backend), device=dev)
     step = fg.compile().step
     params = fg.init_params()
     xs = [iq[b * BLOCK:(b + 1) * BLOCK] for b in range(N_BLOCKS)]
@@ -389,7 +587,7 @@ def chain_runner(dev, iq, cfg, backend):
     return run
 
 
-def profile_chain(run, step_ms: float):
+def profile_chain(run, step_ms: float, label: str):
     """Kernel time per step and by name, from torch.profiler over 5
     steps. The busy share is that kernel time over ``step_ms``, the
     CUDA-event step time of unprofiled runs: the profiler adds host time
@@ -402,7 +600,7 @@ def profile_chain(run, step_ms: float):
         prof_ms = run(steps)
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=25)
-    with open(os.path.join(OUT_DIR, "chain_profile.txt"), "w") as fh:
+    with open(os.path.join(OUT_DIR, f"{label}_profile.txt"), "w") as fh:
         fh.write(table)
     # kernel rows only: the aten rows repeat their kernels' time
     dev_us = sum(e.self_device_time_total for e in prof.key_averages()
@@ -410,7 +608,7 @@ def profile_chain(run, step_ms: float):
                  and not e.is_user_annotation)
     kern_ms = dev_us / 1e3 / steps
     busy = kern_ms / step_ms
-    print(f"profile ({steps} steps): kernels {kern_ms:.4f} ms per step; "
+    print(f"profile {label} ({steps} steps): kernels {kern_ms:.4f} ms per step; "
           f"step {prof_ms:.4f} ms under the profiler, {step_ms:.4f} ms "
           f"without (events); device busy {100 * busy:.1f}%, idle "
           f"{100 * (1 - busy):.1f}% of the unprofiled step")
@@ -418,7 +616,7 @@ def profile_chain(run, step_ms: float):
         print("  " + row)
 
 
-def chain_timing(dev, iq, cfg, rounds=6, steps=20):
+def chain_timing(dev, iq, cfg, label, rounds=6, steps=20):
     """Step time of the kernel and plain backends in alternating rounds
     (the host's share of the step varies from run to run)."""
     runs = {b: chain_runner(dev, iq, cfg, b) for b in ("auto", "plain")}
@@ -428,10 +626,10 @@ def chain_timing(dev, iq, cfg, rounds=6, steps=20):
             times[b].append(runs[b](steps))
     for b, ts in times.items():
         med = statistics.median(ts)
-        print(f"chain [{b}] step ms per round (events): "
+        print(f"{label} [{b}] step ms per round (events): "
               + ", ".join(f"{t:.4f}" for t in ts)
               + f"; median {med:.4f} ms = {BLOCK / med / 1e3:.2f} Msamp/s")
-    profile_chain(runs["auto"], statistics.median(times["auto"]))
+    profile_chain(runs["auto"], statistics.median(times["auto"]), label)
 
 
 def resampler_timing(dev):
@@ -466,6 +664,10 @@ def main() -> int:
     iq = synth_fm(N_BLOCKS * BLOCK, dev)
     cfg, kern, launches = main_path(dev, iq)
     executor_phase(dev, iq, cfg, kern)
+    fused_launches = fused_path(dev, iq)
+    for name in FUSED_PATH_KERNELS:
+        launches[name] = fused_launches[name]
+    pump_phase(dev)
 
     rows = []
     for c in cases:
@@ -480,7 +682,9 @@ def main() -> int:
               f"{c['nbytes'] / ms / 1e6:.1f} GB/s")
         rows.append(dict(c, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by))
-    chain_timing(dev, iq, cfg)
+    chain_timing(dev, iq, cfg, "chain")
+    chain_timing(dev, iq, WBFMConfig(block_size=BLOCK, fused=True,
+                                     center_freq=STATION_HZ), "fused_chain")
     resampler_timing(dev)
 
     table = []

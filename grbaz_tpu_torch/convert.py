@@ -7,7 +7,9 @@ tree of numpy scalars and arrays. :func:`params_from_numpy` and
 * uint32 becomes int64 holding the same value (the port's uint32
   convention, see ``core.device``);
 * every other dtype (complex64, float32, int32, ...) is kept;
-* tensors already in the tree are moved to ``device``; ``None`` stays.
+* tensors already in the tree are moved to ``device``; ``None`` stays;
+* a host value bound for the card is copied from pinned memory with
+  ``non_blocking=True``, so the conversion never waits for queued work.
 
 :func:`to_numpy` is the reverse: int64 tensors go back to uint32, which
 is lossless because the port uses int64 tensors only for uint32 values.
@@ -25,11 +27,16 @@ from grbaz_tpu_torch.core.device import U32_MASK, resolve_device
 
 def _leaf_to_tensor(x, device):
     if isinstance(x, torch.Tensor):
-        return x.to(device)
-    arr = np.asarray(x)
-    if arr.dtype == np.uint32:
-        arr = arr.astype(np.int64) & U32_MASK
-    return torch.from_numpy(np.array(arr)).to(device)
+        if x.device.type == device.type:
+            return x
+    else:
+        arr = np.asarray(x)
+        if arr.dtype == np.uint32:
+            arr = arr.astype(np.int64) & U32_MASK
+        x = torch.from_numpy(np.array(arr))
+    if device.type == "cuda":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
 
 
 def _map(tree: Any, fn):

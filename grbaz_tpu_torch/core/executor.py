@@ -10,7 +10,13 @@
 * Outputs come back with their valid counts; ``counts=`` marks a
   partial last block.
 * ``params`` is a host-side dict the caller may change between steps
-  (``ex.params[block_name] = ...``); numpy values are uploaded each step.
+  (``ex.params[block_name] = ...``); its host values are uploaded each
+  step from pinned memory without blocking, so
+  :meth:`StreamExecutor.dispatch` never waits for the card and several
+  steps can be in flight; :meth:`StreamExecutor.fetch` waits.
+* :meth:`StreamExecutor.save` / :meth:`StreamExecutor.restore` checkpoint
+  the block states, the params and each input's stream position
+  (``core.checkpoint``, the JAX package's file layout).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from grbaz_tpu_torch.convert import params_from_numpy
+from grbaz_tpu_torch.core import checkpoint
 from grbaz_tpu_torch.core.device import resolve_device, scalar
 from grbaz_tpu_torch.core.graph import Flowgraph
 from grbaz_tpu_torch.core.stream import Stream, StreamMeta
@@ -35,6 +42,9 @@ class InputSpec:
     shape: Tuple[int, ...]
     dtype: str
     sample_rate: float = 1.0
+
+
+_META_FIELDS = ("abs_lo", "abs_hi", "epoch_sec", "epoch_frac", "flags", "seq")
 
 
 class _Uploader:
@@ -93,8 +103,11 @@ class StreamExecutor:
     def dispatch(self, ins: Dict[str, np.ndarray],
                  counts: Optional[Dict[str, int]] = None,
                  params: Optional[Dict[str, Any]] = None):
-        """Queue one block on the card; returns the output streams, still
-        on the device, for :meth:`fetch`."""
+        """Queue one block on the card without waiting for it; returns
+        the output streams, still on the device, for :meth:`fetch`. Steps
+        chain through the states on the device, so several can be in
+        flight (:class:`~grbaz_tpu_torch.core.pump.StreamPump` keeps
+        ``inflight`` of them pending)."""
         if self._states is None:
             self.reset()
         if params is not None:
@@ -139,6 +152,36 @@ class StreamExecutor:
         result = self.fetch(self.dispatch(ins, counts, params))
         self.stats["wall_time"] += time.monotonic() - t0
         return result
+
+    # -- checkpoint ----------------------------------------------------------
+    def save(self, path: str, extra: Optional[Dict[str, Any]] = None):
+        """Checkpoint the block states, the params and each input's
+        stream meta (as ``extra`` entries ``meta/<input>/<field>``) to
+        ``path`` (.npz). Waits for the steps dispatched so far."""
+        if self._states is None:
+            self.reset()
+        extra = dict(extra or {})
+        for name, meta in self._meta.items():
+            for field in _META_FIELDS:
+                extra[f"meta/{name}/{field}"] = getattr(meta, field)
+        checkpoint.save_state(path, self._states, self.params, extra)
+
+    def restore(self, path: str) -> Dict[str, np.ndarray]:
+        """Resume from a checkpoint of :meth:`save` (or any file of the
+        same layout; an input without meta entries starts at sample 0).
+        Validates it against this graph's init trees; returns the
+        caller's ``extra`` entries."""
+        states, params, extra = checkpoint.load_state(
+            path, self.graph.init_states(), self.graph.init_params())
+        self.reset()
+        self._states, self.params = states, params
+        for name, meta in self._meta.items():
+            fields = {f: extra.pop(f"meta/{name}/{f}") for f in _META_FIELDS
+                      if f"meta/{name}/{f}" in extra}
+            self._meta[name] = dataclasses.replace(meta, **{
+                f: params_from_numpy(v, self.device)
+                for f, v in fields.items()})
+        return extra
 
     def throughput(self) -> float:
         """Host-observed samples/s over all steps so far."""

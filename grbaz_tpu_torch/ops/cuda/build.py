@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-KERNEL_SOURCES = ("xlating_fir", "fir_decimate")
+KERNEL_SOURCES = ("xlating_fir", "fir_decimate", "xlating_fir_ctaps")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

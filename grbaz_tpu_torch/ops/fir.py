@@ -22,6 +22,7 @@ from grbaz_tpu_torch.core.block import Block
 from grbaz_tpu_torch.core.device import U32_MASK, resolve_device, scalar
 from grbaz_tpu_torch.core.stream import Stream
 from grbaz_tpu_torch.ops import exact
+from grbaz_tpu_torch.ops.wbfm_frontend import rotate_output, rotated_taps
 
 BACKENDS = ("auto", "plain", "kernel")
 
@@ -133,6 +134,17 @@ def fir_decimate_tail_block(tail: torch.Tensor, x: torch.Tensor,
     return fir_decimate_frame(torch.cat([tail[1:], x]), h_rev_pad, decim)
 
 
+def fir_decimate_frame_ctaps(frame: torch.Tensor, g_rev_pad: torch.Tensor,
+                             decim: int) -> torch.Tensor:
+    """Polyphase decimating FIR with COMPLEX taps over a complex frame
+    with tpad-1 leading history: ``y[k] = sum_t g_rev_pad[t] *
+    frame[k*decim + t]`` (port of ``_fir_decimate_poly_ctaps``)."""
+    tpad = g_rev_pad.shape[0]
+    z, n_out = _polyphase_rows(frame.to(torch.complex64), tpad, decim)
+    g2t = g_rev_pad.to(torch.complex64).reshape(tpad // decim, decim).T
+    return _band_sum(z @ g2t, n_out)
+
+
 def xlating_fir_decimate_frame(frame: torch.Tensor, h_rev_pad: torch.Tensor,
                                decim: int, phase0: torch.Tensor,
                                lo_inc: torch.Tensor) -> torch.Tensor:
@@ -140,18 +152,9 @@ def xlating_fir_decimate_frame(frame: torch.Tensor, h_rev_pad: torch.Tensor,
     filter with the complex taps ``g[t] = h_rev[t] * lo((t - (tpad-1)))``
     and rotate only the decimated outputs by ``lo(phase0 + k*decim*inc)``.
     Same output as rotate-then-filter, f32 rounding aside."""
-    tpad = h_rev_pad.shape[0]
-    t_idx = torch.arange(tpad, dtype=torch.int64, device=frame.device)
-    ang = exact.turns_u32_to_radians(((t_idx - (tpad - 1)) * lo_inc)
-                                     & U32_MASK)
-    g = h_rev_pad.to(torch.float32) * torch.complex(torch.cos(ang),
-                                                    torch.sin(ang))
-    z, n_out = _polyphase_rows(frame.to(torch.complex64), tpad, decim)
-    yf = _band_sum(z @ g.reshape(tpad // decim, decim).T, n_out)
-    k = torch.arange(n_out, dtype=torch.int64, device=frame.device)
-    ang_o = exact.turns_u32_to_radians((phase0 + k * ((decim * lo_inc)
-                                                      & U32_MASK)) & U32_MASK)
-    return yf * torch.complex(torch.cos(ang_o), torch.sin(ang_o))
+    yf = fir_decimate_frame_ctaps(frame, rotated_taps(h_rev_pad, lo_inc),
+                                  decim)
+    return rotate_output(yf, phase0, lo_inc, decim)
 
 
 def _carry_tail(tail: torch.Tensor, x: torch.Tensor,

@@ -8,14 +8,19 @@ card has no JAX), so run it there without the JAX conftest:
         tests/test_torch_cuda_kernels.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
 
+from grbaz_tpu_torch.core.executor import InputSpec, StreamExecutor
 from grbaz_tpu_torch.core.stream import Stream
+from grbaz_tpu_torch.models import wbfm
 from grbaz_tpu_torch.ops import fir
 from grbaz_tpu_torch.ops.cuda import fir_decimate as fd
 from grbaz_tpu_torch.ops.cuda import xlating_fir as xf
+from grbaz_tpu_torch.ops.cuda import xlating_fir_ctaps as xc
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +123,108 @@ def test_channel_block_kernel_arm_equals_plain_arm(dev, n):
             ys.append(y.data)
         outs[backend] = torch.cat(ys)
     assert _err(outs["kernel"], outs["plain"]) < 1e-5
+
+
+@pytest.mark.parametrize("n,decim", [(1 << 20, 8), (8192 + 24, 8), (1000, 4),
+                                     (640, 5), (37, 8)])
+@pytest.mark.parametrize("inc", [1, 3123456789, 0x9E3779B9])
+def test_xlating_fir_ctaps_kernel_matches_plain(dev, n, decim, inc):
+    gen = np.random.default_rng(n + decim)
+    h = _taps(decim, dev)
+    x, tail = _cn(gen, n, dev), _cn(gen, h.shape[0], dev)
+    inc = torch.tensor(inc, device=dev)
+    ref = xc.xlating_fir_ctaps_block_plain(x, tail, h, decim, inc)
+    got = xc.xlating_fir_ctaps_block_kernel(x, tail, h, decim, inc)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (n // decim,)
+    assert _err(got, ref) < 1e-5
+    frame = torch.cat([tail[1:], x])
+    got = xc.xlating_fir_ctaps_frame_kernel(frame, h, decim, inc)
+    torch.cuda.synchronize()
+    assert _err(got, ref) < 1e-5
+
+
+def test_ctaps_wrappers_count_launches_and_reject_bad_input(dev):
+    h = _taps(8, dev)
+    x = torch.zeros(1024, dtype=torch.complex64, device=dev)
+    tail = torch.zeros(h.shape[0], dtype=torch.complex64, device=dev)
+    inc = torch.zeros((), dtype=torch.int64, device=dev)
+    before = xc.xlating_fir_ctaps_block.launches
+    xc.xlating_fir_ctaps_block(x, tail, h, 8, inc)
+    assert xc.xlating_fir_ctaps_block.launches == before + 1
+    before = xc.xlating_fir_ctaps_frame.launches
+    xc.xlating_fir_ctaps_frame(torch.cat([tail[1:], x]), h, 8, inc)
+    assert xc.xlating_fir_ctaps_frame.launches == before + 1
+    with pytest.raises(TypeError):
+        xc.xlating_fir_ctaps_block(x.real, tail, h, 8, inc)
+    with pytest.raises(ValueError):
+        xc.xlating_fir_ctaps_block(x, tail.cpu(), h, 8, inc)
+    with pytest.raises(ValueError):
+        xc.xlating_fir_ctaps_block(x, tail[1:], h, 8, inc)
+    with pytest.raises(TypeError):
+        xc.xlating_fir_ctaps_block(x, tail, h, 8, inc.to(torch.int32))
+    with pytest.raises(ValueError):
+        xc.xlating_fir_ctaps_block(x, tail, h[1:], 8, inc)
+    with pytest.raises(ValueError):
+        xc.xlating_fir_ctaps_frame(x[:50], h, 8, inc)
+
+
+@pytest.mark.parametrize("squelch", [None, -20.0])
+@pytest.mark.parametrize("n", [1 << 14, 1000])
+def test_frontend_kernel_arm_equals_plain_arm(dev, squelch, n):
+    taps = fir.low_pass_taps(1.0, FS, 112.5e3, 75e3)
+    gen = np.random.default_rng(11)
+    # loud enough that the squelch gate opens within the first block
+    blocks = [10 * _cn(gen, n, dev) for _ in range(3)]
+    outs, states = {}, {}
+    for backend in ("kernel", "plain"):
+        fe = wbfm.WBFMFrontend(taps, 8, 250e3, FS, 0.85, squelch_db=squelch,
+                               backend=backend, device=dev)
+        st, pr, ys = fe.init_state(), fe.init_params(), []
+        for x in blocks:
+            st, (y,) = fe.apply(st, pr, Stream.full(x))
+            ys.append(y.data)
+        outs[backend], states[backend] = torch.cat(ys), st
+    got, ref = outs["kernel"].cpu().numpy(), outs["plain"].cpu().numpy()
+    bad = np.where(np.abs(got - ref) > 1e-4 * np.abs(ref).max())[0]
+    # a squelch gate may flip where the average meets the threshold
+    # within rounding: one side zeroed, at most 8 samples
+    assert len(bad) <= (0 if squelch is None else 8)
+    assert all(got[i] == 0 or ref[i] == 0 for i in bad)
+    assert np.abs(ref).max() > 0
+    assert torch.equal(states["kernel"]["tail"], states["plain"]["tail"])
+    assert torch.equal(states["kernel"]["phase"], states["plain"]["phase"])
+
+
+def test_dispatch_does_not_wait_for_the_card(dev):
+    """dispatch returns while a queued sleep still holds the card, and a
+    retune written to ex.params reaches the next dispatched block."""
+    n = 1 << 14
+    cfg = wbfm.WBFMConfig(block_size=n, center_freq=250e3, fused=True)
+    fg, _ = wbfm.build_wbfm(cfg, device=dev)
+    ex = StreamExecutor(fg, {"iq": InputSpec((n,), "complex64", FS)},
+                        device=dev)
+    x = np.exp(2j * np.pi * 250e3 / FS * np.arange(n)).astype(np.complex64)
+    ex.step({"iq": x})  # warm-up: builds the kernel, fills the caches
+    ex.params["frontend"] = dict(ex.params["frontend"],
+                                 **wbfm.WBFMFrontend.freq_params(0.0, FS))
+    ex.step({"iq": x})  # the numpy lo_inc is uploaded once here
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9))  # ~1 s of card time
+    t0 = time.perf_counter()
+    outs = ex.dispatch({"iq": x})
+    host_s = time.perf_counter() - t0
+    done = torch.cuda.Event()
+    done.record()
+    busy = not done.query()
+    assert busy and host_s < 0.5, \
+        f"dispatch took {host_s:.3f} s; card still busy after it: {busy}"
+    quad_off = ex.fetch(outs)["quad"][0]
+    ex.params["frontend"] = dict(ex.params["frontend"],
+                                 **wbfm.WBFMFrontend.freq_params(250e3, FS))
+    ex.step({"iq": x})  # tail and phase settle on the new tuning
+    quad_on = ex.step({"iq": x})["quad"][0]
+    # tuned onto the carrier the discriminator reads ~0; 250 kHz off it
+    # reads the 250 kHz phase step
+    assert np.abs(quad_on).max() < 1e-3
+    assert np.abs(quad_off).mean() > 0.1

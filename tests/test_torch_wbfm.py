@@ -93,11 +93,6 @@ def test_cascade_chain_matches_jax_step(chan_backend, squelch_db):
                    np.asarray(jo[port].data)[:k], 1e-4)
 
 
-def test_fused_config_is_next_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twbfm.build_wbfm(twbfm.WBFMConfig(fused=True), device=CPU)
-
-
 def test_stream_executor_partial_block_and_retune():
     """Host-fed executor: a retune between steps and a partial last
     block, against the JAX executor on the same input."""
@@ -145,10 +140,12 @@ def test_convert_round_trip_is_lossless():
             np.testing.assert_array_equal(a, b)
 
 
-def test_port_states_match_jax_layout():
+@pytest.mark.parametrize("fused", [False, True])
+def test_port_states_match_jax_layout(fused):
     """The port's own init trees have the JAX trees' keys, shapes and
     (through the uint32 convention) dtypes, block by block."""
-    kw = dict(block_size=8192, audio_chain="cascade", squelch_db=-10.0)
+    kw = dict(block_size=8192, audio_chain="cascade", squelch_db=-10.0,
+              fused=fused)
     jfg, _ = jwbfm.build_wbfm(jwbfm.WBFMConfig(**kw))
     tfg, _ = twbfm.build_wbfm(twbfm.WBFMConfig(**kw), device=CPU)
     assert [type(b).__name__ for b in jfg.blocks] == \
