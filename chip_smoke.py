@@ -26,8 +26,13 @@ failure of which exits non-zero:
    is busy; a checkpoint after block 8 restored into a fresh executor;
 7. times from CUDA events after warm-up: each kernel, its plain version
    and the one-call library equivalent where there is one, beside its
-   bound; both chains' step time and Msamp/s; the resampler's two forms;
-   a torch.profiler breakdown of chain steps (``chiprun_out/``).
+   bound and the launch floor (a back-to-back empty kernel); both
+   chains' step time and Msamp/s; the resampler's two forms; a
+   torch.profiler breakdown of chain steps (``chiprun_out/``).
+
+B3's row counts the launches of both its entry points and times the
+block entry point, which the cascade chain's ``FIRDecimator`` launches;
+the frame entry point is timed on the ``time`` lines only.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -53,6 +58,7 @@ from grbaz_tpu_torch.models.wbfm import WBFMConfig, WBFMFrontend, build_wbfm
 from grbaz_tpu_torch.ops import exact, fir
 from grbaz_tpu_torch.ops.cuda import build
 from grbaz_tpu_torch.ops.cuda import fir_decimate as fd
+from grbaz_tpu_torch.ops.cuda import tiling
 from grbaz_tpu_torch.ops.cuda import xlating_fir as xf
 from grbaz_tpu_torch.ops.cuda import xlating_fir_ctaps as xc
 from grbaz_tpu_torch.ops.wbfm_frontend import rotated_taps
@@ -73,18 +79,22 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 OUT_DIR = "chiprun_out"
 
-KERNELS = {  # wrapper -> (source, replaced TPU kernel)
+KERNELS = {  # row -> (wrappers whose launches it counts, source, TPU kernel)
     "xlating_fir_block": (
-        xf.xlating_fir_block, "grbaz_tpu_torch/csrc/xlating_fir.cu",
+        (xf.xlating_fir_block,), "grbaz_tpu_torch/csrc/xlating_fir.cu",
         "grbaz_tpu/ops/pallas/wbfm_frontend.py:621"),
     "xlating_fir_frame_rtf": (
-        xf.xlating_fir_frame_rtf, "grbaz_tpu_torch/csrc/xlating_fir.cu",
+        (xf.xlating_fir_frame_rtf,), "grbaz_tpu_torch/csrc/xlating_fir.cu",
         "grbaz_tpu/ops/pallas/wbfm_frontend.py:403"),
+    # B3's two entry points: the frame (the JAX signature) and the block
+    # with the carried tail read in place (FIRDecimator's)
     "fir_decimate_frame": (
-        fd.fir_decimate_frame, "grbaz_tpu_torch/csrc/fir_decimate.cu",
+        (fd.fir_decimate_frame, fd.fir_decimate_block),
+        "grbaz_tpu_torch/csrc/fir_decimate.cu",
         "grbaz_tpu/ops/pallas/fir_kernel.py:113"),
     "xlating_fir_ctaps_block": (
-        xc.xlating_fir_ctaps_block, "grbaz_tpu_torch/csrc/xlating_fir_ctaps.cu",
+        (xc.xlating_fir_ctaps_block,),
+        "grbaz_tpu_torch/csrc/xlating_fir_ctaps.cu",
         "grbaz_tpu/ops/pallas/wbfm_frontend.py:218"),
 }
 # kernels each path launches; xlating_fir_frame_rtf is the
@@ -93,6 +103,17 @@ KERNELS = {  # wrapper -> (source, replaced TPU kernel)
 MAIN_PATH_KERNELS = ("xlating_fir_block", "fir_decimate_frame")
 FUSED_PATH_KERNELS = ("xlating_fir_ctaps_block",)
 PUMP_BLOCKS = 16
+
+
+def reset_launches() -> None:
+    for fns, _, _ in KERNELS.values():
+        for fn in fns:
+            fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: sum(fn.launches for fn in fns)
+            for name, (fns, _, _) in KERNELS.items()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -223,6 +244,10 @@ def kernel_cases(dev):
     aa_frames = copies(lambda: torch.randn(tpad_aa - 1 + n_out, generator=gen,
                                            device=dev), 4 * n_out)
     n_aa = n_out // DECIM
+    # the same shape through the block entry point the cascade chain uses
+    aa_xs = copies(lambda: torch.randn(n_out, generator=gen, device=dev),
+                   4 * n_out)
+    aa_tail = torch.randn(tpad_aa, generator=gen, device=dev)
 
     def conv_real(frame, h):
         return torch.nn.functional.conv1d(frame[None, None], h[None, None],
@@ -237,22 +262,37 @@ def kernel_cases(dev):
                  xs[i % len(xs)], tail, h_chan, DECIM, phase0, inc),
              plain=lambda i: xf.xlating_fir_block_plain(
                  xs[i % len(xs)], tail, h_chan, DECIM, phase0, inc),
-             library=None,
+             library=None, geometry=tiling.for_tensor(xs[0], n_out, tpad,
+                                                     DECIM, 8),
              nbytes=8 * BLOCK + 12 * tpad + 8 * n_out + 16, flops=rot_flops),
         dict(name="xlating_fir_frame_rtf",
              kernel=lambda i: xf.xlating_fir_frame_rtf(
                  frames[i % len(frames)], h_chan, DECIM, phase0, inc),
              plain=lambda i: xf.xlating_fir_frame_rtf_plain(
                  frames[i % len(frames)], h_chan, DECIM, phase0, inc),
-             library=None,
+             library=None, geometry=tiling.for_tensor(xs[0], n_out, tpad,
+                                                     DECIM, 8),
              nbytes=8 * (tpad - 1 + BLOCK) + 4 * tpad + 8 * n_out + 16,
              flops=rot_flops),
-        dict(name="fir_decimate_frame", shape="audio_aa f32",
+        # B3's row: the block entry point at audio_aa, what the cascade
+        # chain's FIRDecimator launches; the frame entry point's cases
+        # after it are timed for the record
+        dict(name="fir_decimate_frame", shape="audio_aa f32, block entry",
+             kernel=lambda i: fd.fir_decimate_block(
+                 aa_xs[i % len(aa_xs)], aa_tail, h_aa, DECIM),
+             plain=lambda i: fd.fir_decimate_block_plain(
+                 aa_tail, aa_xs[i % len(aa_xs)], h_aa, DECIM),
+             library=lambda i: conv_real(aa_frames[i % len(aa_frames)], h_aa),
+             geometry=tiling.for_tensor(aa_xs[0], n_aa, tpad_aa, DECIM, 4),
+             nbytes=4 * (tpad_aa - 1 + n_out) + 4 * tpad_aa + 4 * n_aa,
+             flops=2 * tpad_aa * n_aa),
+        dict(name="fir_decimate_frame", shape="audio_aa f32, frame entry",
              kernel=lambda i: fd.fir_decimate_frame(
                  aa_frames[i % len(aa_frames)], h_aa, DECIM),
              plain=lambda i: fd.fir_decimate_frame_plain(
                  aa_frames[i % len(aa_frames)], h_aa, DECIM),
              library=lambda i: conv_real(aa_frames[i % len(aa_frames)], h_aa),
+             geometry=tiling.for_tensor(aa_frames[0], n_aa, tpad_aa, DECIM, 4),
              nbytes=4 * (tpad_aa - 1 + n_out) + 4 * tpad_aa + 4 * n_aa,
              flops=2 * tpad_aa * n_aa),
         dict(name="fir_decimate_frame", shape="channel c64",
@@ -262,6 +302,7 @@ def kernel_cases(dev):
                  frames[i % len(frames)], h_chan, DECIM),
              library=lambda i: torch.nn.functional.conv1d(
                  planar[i % len(planar)], h_chan[None, None], stride=DECIM),
+             geometry=tiling.for_tensor(frames[0], n_out, tpad, DECIM, 4),
              nbytes=8 * (tpad - 1 + BLOCK) + 4 * tpad + 8 * n_out,
              flops=4 * tpad * n_out),
     ]
@@ -298,7 +339,8 @@ def check_kernels(cases):
         c["max_abs_err"] = err
         label = c["name"] + (f" [{c['shape']}]" if "shape" in c else "")
         print(f"kernel {label}: max_abs_err {err:.3e} (bar {bar:.3e}), "
-              f"shape {tuple(got.shape)} {got.dtype}")
+              f"shape {tuple(got.shape)} {got.dtype}"
+              + (f", {c['geometry']}" if "geometry" in c else ""))
         check(got.shape == ref.shape and got.dtype == ref.dtype,
               f"{label} shape/dtype")
         check(bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
@@ -327,10 +369,9 @@ def valid(outs, port):
 def main_path(dev, iq):
     cfg = WBFMConfig(block_size=BLOCK, audio_chain="cascade",
                      center_freq=STATION_HZ)
-    for fn, _, _ in KERNELS.values():
-        fn.launches = 0
+    reset_launches()
     _, kern = run_chain(cfg, dev, iq, N_BLOCKS)
-    launches = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    launches = launch_counts()
     print(f"main path launches over {N_BLOCKS} blocks: {launches}")
     for name in MAIN_PATH_KERNELS:
         check(launches[name] == N_BLOCKS, f"main path launched {name} "
@@ -338,9 +379,7 @@ def main_path(dev, iq):
 
     _, plain = run_chain(dataclasses.replace(cfg, chan_backend="plain"), dev,
                          iq, N_BLOCKS)
-    check(all(fn.launches == launches[n]
-              for n, (fn, _, _) in KERNELS.items()),
-          "the plain backend launched a kernel")
+    check(launch_counts() == launches, "the plain backend launched a kernel")
     for port in ("audio", "quad"):
         a, b = valid(kern, port), valid(plain, port)
         check([len(v) for v in a] == [len(v) for v in b], f"{port} counts")
@@ -413,10 +452,9 @@ def fused_path(dev, iq):
     for squelch in (None, -20.0):
         cfg = WBFMConfig(block_size=BLOCK, fused=True, center_freq=STATION_HZ,
                          squelch_db=squelch)
-        for fn, _, _ in KERNELS.values():
-            fn.launches = 0
+        reset_launches()
         _, kern = run_chain(cfg, dev, iq, N_BLOCKS)
-        counts = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+        counts = launch_counts()
         print(f"fused path (squelch {squelch}) launches over {N_BLOCKS} "
               f"blocks: {counts}")
         for name in KERNELS:
@@ -427,8 +465,7 @@ def fused_path(dev, iq):
             launches = counts
         _, plain = run_chain(dataclasses.replace(cfg, fused_backend="plain"),
                              dev, iq, N_BLOCKS)
-        check(all(fn.launches == counts[n]
-                  for n, (fn, _, _) in KERNELS.items()),
+        check(launch_counts() == counts,
               "the plain fused backend launched a kernel")
         for port in ("audio", "quad"):
             a, b = valid(kern, port), valid(plain, port)
@@ -669,6 +706,7 @@ def main() -> int:
         launches[name] = fused_launches[name]
     pump_phase(dev)
 
+    floor_ms = time_ms(lambda i: torch.cuda._sleep(0), 200)
     rows = []
     for c in cases:
         ms = time_ms(c["kernel"], 200)
@@ -689,7 +727,8 @@ def main() -> int:
 
     table = []
     for r in rows:
-        # one row per kernel: the main path's shape where there are two
+        # one row per kernel: its first case, the main path's shape and
+        # entry point
         if any(t["name"] == r["name"] for t in table):
             continue
         _, source, replaces = KERNELS[r["name"]]
@@ -699,6 +738,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(f"launch floor: {floor_ms:.4f} ms per back-to-back empty kernel "
+          f"(torch.cuda._sleep(0), CUDA events)")
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

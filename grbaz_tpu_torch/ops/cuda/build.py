@@ -7,8 +7,9 @@ pointers come from ``tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``. The sources do not include
 PyTorch's headers, so a build takes seconds rather than minutes.
 
-A library is named after the hash of its source, so an edited source is
-rebuilt and an unchanged one is reused. :func:`build_all` starts one
+A library is named after the hash of its source and of the shared
+headers (``csrc/*.cuh``), so an edited source or header is rebuilt and
+an unchanged one is reused. :func:`build_all` starts one
 ``nvcc`` per source, all at once, and waits for all of them.
 """
 
@@ -45,9 +46,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library of ``<name>.cu``, named after the hash of the source,
+    every header of ``CSRC`` (a source may include any of them) and the
+    compiler flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:

@@ -13,9 +13,12 @@ Replaces two TPU kernels of ``grbaz_tpu/ops/pallas/wbfm_frontend.py``:
   same over ``frame = concat(tail[1:], x)``; a second entry point of the
   same CUDA kernel.
 
-``phase0`` and ``lo_inc`` are 0-d int64 tensors holding uint32 values;
-the kernel reads them from device memory, so a launch never waits for
-the card.
+The kernel computes the factored form: B2's rotated complex taps over
+the raw samples, then one LO rotation per output (``csrc/xlating_fir.cu``);
+the plain twins stay rotate-then-filter, the independent reference it is
+held to. ``phase0`` and ``lo_inc`` are 0-d int64 tensors holding uint32
+values; the kernel reads them from device memory, so a launch never
+waits for the card.
 """
 
 from __future__ import annotations
@@ -26,14 +29,15 @@ import torch
 
 from grbaz_tpu_torch.core.device import U32_MASK
 from grbaz_tpu_torch.ops import exact, fir
-from grbaz_tpu_torch.ops.cuda import build
+from grbaz_tpu_torch.ops.cuda import build, tiling
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_G = tiling.Geometry
 _SIGNATURES = {
-    "xlating_fir_block": [_P, _P, _I64, _P, _P, _P, _P, _I, _I, _I, _P],
-    "xlating_fir_frame_rtf": [_P, _I64, _P, _P, _P, _P, _I, _I, _I, _P],
+    "xlating_fir_block": [_P, _P, _I64, _P, _P, _P, _P, _I, _I, _I, _G, _P],
+    "xlating_fir_frame_rtf": [_P, _I64, _P, _P, _P, _P, _I, _I, _I, _G, _P],
 }
 
 
@@ -99,6 +103,7 @@ def xlating_fir_block_kernel(x, tail, h_rev_pad, decim, phase0, lo_inc):
     err = _lib().xlating_fir_block(
         x.data_ptr(), tail.data_ptr(), n, h.data_ptr(), phase0.data_ptr(),
         lo_inc.data_ptr(), y.data_ptr(), n_out, tpad, decim,
+        tiling.for_tensor(x, n_out, tpad, decim, 8),  # complex taps
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "xlating_fir_block")
     xlating_fir_block.launches += 1
@@ -120,6 +125,7 @@ def xlating_fir_frame_rtf_kernel(frame, h_rev_pad, decim, phase0, lo_inc):
     err = _lib().xlating_fir_frame_rtf(
         frame.data_ptr(), n, h.data_ptr(), phase0.data_ptr(),
         lo_inc.data_ptr(), y.data_ptr(), n_out, tpad, decim,
+        tiling.for_tensor(frame, n_out, tpad, decim, 8),  # complex taps
         torch.cuda.current_stream(frame.device).cuda_stream)
     build.check(err, "xlating_fir_frame_rtf")
     xlating_fir_frame_rtf.launches += 1

@@ -178,9 +178,10 @@ class FIRDecimator(Block):
     """Decimating FIR with carried filter tail. decim=1 gives a plain FIR.
 
     ``backend``: 'auto' and 'kernel' go through the CUDA decimating-FIR
-    kernel's wrapper, which runs the kernel on the card and its plain
-    twin (the polyphase product) on the CPU; 'plain' always runs the
-    plain product. 'kernel' is accepted so that one backend name
+    kernel's block entry point (``fir_decimate_block``), which reads the
+    carried tail and the new block in place on the card and runs the
+    plain twin (the polyphase product) on the CPU; 'plain' always runs
+    the plain product. 'kernel' is accepted so that one backend name
     (``WBFMConfig.chan_backend``) can serve every block of a chain.
     """
 
@@ -202,13 +203,14 @@ class FIRDecimator(Block):
                                      device=self.device))
 
     def apply(self, state, params, x: Stream):
-        frame = torch.cat([state["tail"][1:], x.data])
         if self.backend == "plain":
-            y = fir_decimate_frame(frame, self.h_rev_pad, self.decim)
+            y = fir_decimate_tail_block(state["tail"], x.data, self.h_rev_pad,
+                                        self.decim)
         else:
             from grbaz_tpu_torch.ops.cuda.fir_decimate import \
-                fir_decimate_frame as fir_kernel
-            y = fir_kernel(frame, self.h_rev_pad, self.decim)
+                fir_decimate_block
+            y = fir_decimate_block(x.data, state["tail"], self.h_rev_pad,
+                                   self.decim)
         tail = _carry_tail(state["tail"], x.data, self.tail_len)
         out = x.like(y, count=x.count // self.decim,
                      rate_scale=1.0 / self.decim)

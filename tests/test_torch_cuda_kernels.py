@@ -19,6 +19,7 @@ from grbaz_tpu_torch.core.stream import Stream
 from grbaz_tpu_torch.models import wbfm
 from grbaz_tpu_torch.ops import fir
 from grbaz_tpu_torch.ops.cuda import fir_decimate as fd
+from grbaz_tpu_torch.ops.cuda import tiling
 from grbaz_tpu_torch.ops.cuda import xlating_fir as xf
 from grbaz_tpu_torch.ops.cuda import xlating_fir_ctaps as xc
 
@@ -167,6 +168,107 @@ def test_ctaps_wrappers_count_launches_and_reject_bad_input(dev):
         xc.xlating_fir_ctaps_block(x, tail, h[1:], 8, inc)
     with pytest.raises(ValueError):
         xc.xlating_fir_ctaps_frame(x[:50], h, 8, inc)
+
+
+def _random_taps(gen, taps, decim, dev):
+    h = fir.prepare_taps(gen.standard_normal(taps).astype(np.float32), decim)
+    return torch.from_numpy(h).to(dev)
+
+
+def _polyphase_cases(gen, n, h, decim, dev):
+    """(label, kernel output, plain output) of every polyphase entry point
+    on a block ``x`` whose data starts 8 bytes past a 16-byte boundary."""
+    tpad = h.shape[0]
+    x, tail = _cn(gen, n + 1, dev)[1:], _cn(gen, tpad, dev)
+    assert x.data_ptr() % 16 == 8
+    frame = torch.cat([tail[1:], x])
+    ph, inc = torch.tensor(0xFFFFF000, device=dev), \
+        torch.tensor(0x9E3779B9, device=dev)
+    out = [("B1", xf.xlating_fir_block_kernel(x, tail, h, decim, ph, inc),
+            xf.xlating_fir_block_plain(x, tail, h, decim, ph, inc)),
+           ("B4", xf.xlating_fir_frame_rtf_kernel(frame, h, decim, ph, inc),
+            xf.xlating_fir_frame_rtf_plain(frame, h, decim, ph, inc))]
+    for xs, ts in ((x, tail), (x.real, tail.real)):
+        fs = torch.cat([ts[1:], xs])
+        out.append((f"B3 frame {xs.dtype}",
+                    fd.fir_decimate_frame_kernel(fs, h, decim),
+                    fd.fir_decimate_frame_plain(fs, h, decim)))
+        out.append((f"B3 block {xs.dtype}",
+                    fd.fir_decimate_block_kernel(xs, ts, h, decim),
+                    fd.fir_decimate_block_plain(ts, xs, h, decim)))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("n_out", [1, 7, 37, 1000, 4099])
+@pytest.mark.parametrize("taps", [176, 1024])
+@pytest.mark.parametrize("decim", [1, 3, 4, 5, 8])
+def test_polyphase_kernels_at_ragged_shapes(dev, decim, taps, n_out):
+    """Outputs below one tile and not a multiple of R or of the tile, a
+    first tile that straddles the tail and a block at a non-16-byte
+    offset, decim 1-8, 176 and 1024 taps; the block ragged by decim-1."""
+    gen = np.random.default_rng(n_out * 31 + decim * 7 + taps)
+    h = _random_taps(gen, taps, decim, dev)
+    n = n_out * decim + decim - 1
+    for label, got, ref in _polyphase_cases(gen, n, h, decim, dev):
+        assert got.shape == ref.shape == (n_out,), label
+        assert _err(got, ref) < 1e-5, label
+
+
+@pytest.mark.parametrize("n,decim,taps,want", [
+    (1 << 20, 8, 104, (256, 8, 4)), (131072, 8, 176, (128, 4, 8)),
+    (1 << 20, 8, 1024, (256, 8, 4)), (1 << 17, 1, 1024, (256, 8, 1)),
+    (8000, 2, 4, (128, 2, 2)), (8000, 8, 8, (128, 1, 8)),
+    (4000, 1, 13500, (32, 1, 1))])
+def test_polyphase_kernels_for_every_window_and_split(dev, n, decim, taps,
+                                                      want):
+    """Shapes whose host geometry reaches every window (8, 4, 2, 1), every
+    split (1, 2, 4, 8), fewer threads for long taps, and shared memory
+    above 48 KB (1024 taps at decim 8; 13500 taps at decim 1, ~211 KB)."""
+    gen = np.random.default_rng(decim + taps)
+    h = _random_taps(gen, taps, decim, dev)
+    tpad = h.shape[0]
+    x, tail = _cn(gen, n, dev), _cn(gen, tpad, dev)
+    geo = tiling.for_tensor(x, n // decim, tpad, decim, 8)
+    assert (geo.threads, geo.r, geo.split) == want
+    if taps >= 1024 and decim == 8:
+        assert tiling.smem_bytes(geo, tpad, decim, 8, 8) > 48 * 1024
+    ph, inc = torch.tensor(12345, device=dev), torch.tensor(3123456789,
+                                                            device=dev)
+    got = xf.xlating_fir_block_kernel(x, tail, h, decim, ph, inc)
+    ref = xf.xlating_fir_block_plain(x, tail, h, decim, ph, inc)
+    assert _err(got, ref) < 1e-5, geo
+    for xs, ts in ((x, tail), (x.real.contiguous(), tail.real.contiguous())):
+        got3 = fd.fir_decimate_block_kernel(xs, ts, h, decim)
+        ref3 = fd.fir_decimate_block_plain(ts, xs, h, decim)
+        assert _err(got3, ref3) < 1e-5, (xs.dtype, geo)
+
+
+@pytest.mark.parametrize("n", [16384, 1000, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_fir_decimator_block_entry_equals_plain_arm(dev, n, dtype):
+    """FIRDecimator over 3 chained blocks: the kernel arm (the block entry
+    point, tail read in place) against the plain arm, outputs and tails."""
+    taps = fir.low_pass_taps(1.0, 400e3, 21.6e3, 9.6e3,
+                             window="blackmanharris")
+    gen = np.random.default_rng(n)
+    blocks = [_cn(gen, n, dev) for _ in range(3)]
+    if dtype == torch.float32:
+        blocks = [b.real.contiguous() for b in blocks]
+    outs, tails = {}, {}
+    before = fd.fir_decimate_block.launches
+    for backend in ("kernel", "plain"):
+        blk = fir.FIRDecimator(taps, 8, dtype=dtype, backend=backend,
+                               device=dev)
+        st, ys = blk.init_state(), []
+        for x in blocks:
+            st, (y,) = blk.apply(st, {}, Stream.full(x))
+            ys.append(y.data)
+        outs[backend], tails[backend] = torch.cat(ys), st["tail"]
+    assert fd.fir_decimate_block.launches == before + 3
+    assert outs["kernel"].dtype == dtype
+    assert _err(outs["kernel"], outs["plain"]) < 1e-5
+    assert torch.equal(tails["kernel"], tails["plain"])
 
 
 @pytest.mark.parametrize("squelch", [None, -20.0])
