@@ -326,6 +326,7 @@ def ctaps_case(h_chan, inc, tail, xs):
                 plain=lambda i: xc.xlating_fir_ctaps_block_plain(
                     xs[i % len(xs)], tail, h_chan, DECIM, inc),
                 library=library,
+                geometry=tiling.for_tensor(xs[0], n_out, tpad, DECIM, 8),
                 nbytes=8 * BLOCK + 12 * tpad + 8 * n_out + 8,
                 flops=8 * tpad * n_out)
 

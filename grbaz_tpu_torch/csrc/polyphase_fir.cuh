@@ -386,8 +386,10 @@ int launch_r(const Problem& pr, const Layout& lay, int threads,
 template <typename S, class Taps, class Epi>
 int launch(const Problem& pr, const Geometry& geo, cudaStream_t stream) {
   if (pr.n_out <= 0) return 0;
+  // every field is checked before layout() divides by it
   if (geo.threads <= 0 || geo.threads > MAX_THREADS || geo.threads % 32 ||
       geo.split <= 0 || (geo.split & (geo.split - 1)) || geo.split > 32 ||
+      geo.r <= 0 || (geo.r & (geo.r - 1)) || geo.r > 8 ||
       pr.decim <= 0 || pr.tpad < pr.decim || pr.tpad % pr.decim)
     return (int)cudaErrorInvalidValue;
   const Layout lay =

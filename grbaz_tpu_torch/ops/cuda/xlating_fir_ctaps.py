@@ -13,6 +13,10 @@ points of the one kernel:
 * :func:`xlating_fir_ctaps_frame`: over ``frame = concat(tail[1:], x)``,
   the JAX kernel's signature.
 
+The kernel is the polyphase core (``csrc/polyphase_fir.cuh``) with
+rotated taps and a plain store, launched with the geometry that
+``tiling`` picks for complex samples and complex taps.
+
 ``lo_inc`` is a 0-d int64 tensor holding a uint32 value; the kernel
 builds the taps from it in device memory, so a launch never waits for
 the card.
@@ -24,16 +28,17 @@ import ctypes
 
 import torch
 
-from grbaz_tpu_torch.ops.cuda import build
+from grbaz_tpu_torch.ops.cuda import build, tiling
 from grbaz_tpu_torch.ops.fir import fir_decimate_frame_ctaps
 from grbaz_tpu_torch.ops.wbfm_frontend import rotated_taps
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_G = tiling.Geometry
 _SIGNATURES = {
-    "xlating_fir_ctaps_block": [_P, _P, _I64, _P, _P, _P, _I, _I, _I, _P],
-    "xlating_fir_ctaps_frame": [_P, _I64, _P, _P, _P, _I, _I, _I, _P],
+    "xlating_fir_ctaps_block": [_P, _P, _I64, _P, _P, _P, _I, _I, _I, _G, _P],
+    "xlating_fir_ctaps_frame": [_P, _I64, _P, _P, _P, _I, _I, _I, _G, _P],
 }
 
 
@@ -91,6 +96,7 @@ def xlating_fir_ctaps_block_kernel(x, tail, h_rev_pad, decim, lo_inc):
     err = _lib().xlating_fir_ctaps_block(
         x.data_ptr(), tail.data_ptr(), n, h.data_ptr(), inc.data_ptr(),
         y.data_ptr(), n_out, tpad, decim,
+        tiling.for_tensor(x, n_out, tpad, decim, 8),  # complex taps
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "xlating_fir_ctaps_block")
     xlating_fir_ctaps_block.launches += 1
@@ -110,7 +116,9 @@ def xlating_fir_ctaps_frame_kernel(frame, h_rev_pad, decim, lo_inc):
     y = torch.empty(n_out, dtype=torch.complex64, device=frame.device)
     err = _lib().xlating_fir_ctaps_frame(
         frame.data_ptr(), n, h.data_ptr(), inc.data_ptr(), y.data_ptr(),
-        n_out, tpad, decim, torch.cuda.current_stream(frame.device).cuda_stream)
+        n_out, tpad, decim,
+        tiling.for_tensor(frame, n_out, tpad, decim, 8),  # complex taps
+        torch.cuda.current_stream(frame.device).cuda_stream)
     build.check(err, "xlating_fir_ctaps_frame")
     xlating_fir_ctaps_frame.launches += 1
     return y

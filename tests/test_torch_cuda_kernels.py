@@ -170,6 +170,33 @@ def test_ctaps_wrappers_count_launches_and_reject_bad_input(dev):
         xc.xlating_fir_ctaps_frame(x[:50], h, 8, inc)
 
 
+def test_polyphase_launch_refuses_a_geometry_it_does_not_take(dev):
+    """A Geometry field left at 0 (a ctypes structure built without it)
+    or out of range is refused with cudaErrorInvalidValue (1), never
+    launched; the host's own geometry launches."""
+    h = _taps(8, dev)
+    tpad = h.shape[0]
+    x = torch.zeros(8192, dtype=torch.complex64, device=dev)
+    tail = torch.zeros(tpad, dtype=torch.complex64, device=dev)
+    inc = torch.zeros((), dtype=torch.int64, device=dev)
+    y = torch.empty(1024, dtype=torch.complex64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    good = tiling.for_tensor(x, 1024, tpad, 8, 8)
+    lib = xc._lib()
+    for field, value in (("threads", 0), ("r", 0), ("split", 0),
+                         ("threads", 288), ("r", 3), ("split", 3)):
+        geo = tiling.Geometry(good.threads, good.r, good.split)
+        setattr(geo, field, value)
+        err = lib.xlating_fir_ctaps_block(
+            x.data_ptr(), tail.data_ptr(), 8192, h.data_ptr(),
+            inc.data_ptr(), y.data_ptr(), 1024, tpad, 8, geo, stream)
+        assert err == 1, (field, value, err)
+    assert lib.xlating_fir_ctaps_block(
+        x.data_ptr(), tail.data_ptr(), 8192, h.data_ptr(), inc.data_ptr(),
+        y.data_ptr(), 1024, tpad, 8, good, stream) == 0
+    torch.cuda.synchronize()
+
+
 def _random_taps(gen, taps, decim, dev):
     h = fir.prepare_taps(gen.standard_normal(taps).astype(np.float32), decim)
     return torch.from_numpy(h).to(dev)
@@ -177,7 +204,9 @@ def _random_taps(gen, taps, decim, dev):
 
 def _polyphase_cases(gen, n, h, decim, dev):
     """(label, kernel output, plain output) of every polyphase entry point
-    on a block ``x`` whose data starts 8 bytes past a 16-byte boundary."""
+    on a block ``x`` whose data starts 8 bytes past a 16-byte boundary:
+    B1 and B4 (rotated output), B2's two entry points (unrotated output),
+    B3's two entry points for both sample types."""
     tpad = h.shape[0]
     x, tail = _cn(gen, n + 1, dev)[1:], _cn(gen, tpad, dev)
     assert x.data_ptr() % 16 == 8
@@ -187,7 +216,13 @@ def _polyphase_cases(gen, n, h, decim, dev):
     out = [("B1", xf.xlating_fir_block_kernel(x, tail, h, decim, ph, inc),
             xf.xlating_fir_block_plain(x, tail, h, decim, ph, inc)),
            ("B4", xf.xlating_fir_frame_rtf_kernel(frame, h, decim, ph, inc),
-            xf.xlating_fir_frame_rtf_plain(frame, h, decim, ph, inc))]
+            xf.xlating_fir_frame_rtf_plain(frame, h, decim, ph, inc)),
+           ("B2 block", xc.xlating_fir_ctaps_block_kernel(x, tail, h, decim,
+                                                          inc),
+            xc.xlating_fir_ctaps_block_plain(x, tail, h, decim, inc)),
+           ("B2 frame", xc.xlating_fir_ctaps_frame_kernel(frame, h, decim,
+                                                          inc),
+            xc.xlating_fir_ctaps_frame_plain(frame, h, decim, inc))]
     for xs, ts in ((x, tail), (x.real, tail.real)):
         fs = torch.cat([ts[1:], xs])
         out.append((f"B3 frame {xs.dtype}",
@@ -224,7 +259,8 @@ def test_polyphase_kernels_for_every_window_and_split(dev, n, decim, taps,
                                                       want):
     """Shapes whose host geometry reaches every window (8, 4, 2, 1), every
     split (1, 2, 4, 8), fewer threads for long taps, and shared memory
-    above 48 KB (1024 taps at decim 8; 13500 taps at decim 1, ~211 KB)."""
+    above 48 KB (1024 taps at decim 8; 13500 taps at decim 1, ~211 KB,
+    the longest that fit with complex taps): B1, B2 and B3."""
     gen = np.random.default_rng(decim + taps)
     h = _random_taps(gen, taps, decim, dev)
     tpad = h.shape[0]
@@ -238,6 +274,13 @@ def test_polyphase_kernels_for_every_window_and_split(dev, n, decim, taps,
     got = xf.xlating_fir_block_kernel(x, tail, h, decim, ph, inc)
     ref = xf.xlating_fir_block_plain(x, tail, h, decim, ph, inc)
     assert _err(got, ref) < 1e-5, geo
+    # B2 takes B1's geometry (complex samples and taps); both entry points
+    ref2 = xc.xlating_fir_ctaps_block_plain(x, tail, h, decim, inc)
+    got2 = xc.xlating_fir_ctaps_block_kernel(x, tail, h, decim, inc)
+    assert _err(got2, ref2) < 1e-5, geo
+    got2 = xc.xlating_fir_ctaps_frame_kernel(torch.cat([tail[1:], x]), h,
+                                             decim, inc)
+    assert _err(got2, ref2) < 1e-5, geo
     for xs, ts in ((x, tail), (x.real.contiguous(), tail.real.contiguous())):
         got3 = fd.fir_decimate_block_kernel(xs, ts, h, decim)
         ref3 = fd.fir_decimate_block_plain(ts, xs, h, decim)

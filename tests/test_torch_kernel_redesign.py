@@ -11,7 +11,8 @@ FIR B3), on the CPU.
   shared memory and keeps the window loads free of bank conflicts;
 * a step-by-step model of the kernel's staging and register window
   (same slots, same loop order, NaN in every slot it never stages)
-  reproduces the plain twins for every geometry it may be given;
+  reproduces the plain twins of B1, B2 and B3 for every geometry it may
+  be given;
 * the kernel library is rebuilt when a shared header changes.
 
 Bar: max-abs error < 1e-5 * max|reference|.
@@ -127,7 +128,8 @@ def test_b3_block_entry_matches_jax_on_concat(rng, complex_frame, decim, spec):
 
 SHAPES = [(131072, 8, 104), (16384, 8, 176), (131072, 8, 1024),
           (1, 1, 1), (7, 3, 9), (1000, 5, 1020), (4097, 16, 1024),
-          (3000, 1, 1024), (2049, 2, 64), (640, 16, 16), (333, 7, 700)]
+          (3000, 1, 1024), (2049, 2, 64), (640, 16, 16), (333, 7, 700),
+          (4000, 1, 13500), (1000, 5, 4000), (37, 3, 999)]
 
 
 @pytest.mark.parametrize("sample_bytes,tap_bytes", [(4, 4), (8, 4), (8, 8)])
@@ -151,12 +153,16 @@ def test_geometry_covers_every_output_once_within_shared_memory(
 def test_geometry_regimes_at_the_main_path_shapes():
     """The channel shapes get 8-output windows in 512-output tiles, two
     blocks or fewer per SM; the audio_aa shape lanes that share outputs
-    and more blocks than SMs; taps are checked."""
+    and more blocks than SMs; taps are checked. B2 at the fused path's
+    shape (complex samples, complex taps) takes B1's geometry."""
     chan = tiling.geometry(131072, 104, 8, 8, 8, 132)
     assert (chan.threads, chan.r, chan.split) == (256, 8, 4)
     assert tiling.taps_per_phase(104, 8, chan.r) == 16
     tile = tiling.tile_outputs(chan.threads, chan.r, chan.split)
-    assert -(-131072 // tile) <= 132 * 2
+    assert tile == 512 and -(-131072 // tile) <= 132 * 2
+    # B3 over complex samples: the same geometry, real taps
+    b3 = tiling.geometry(131072, 104, 8, 8, 4, 132)
+    assert (b3.threads, b3.r, b3.split) == (256, 8, 4)
     aa = tiling.geometry(16384, 176, 8, 4, 4, 132)
     assert (aa.threads, aa.r, aa.split) == (128, 4, 8)
     assert 16384 // tiling.tile_outputs(aa.threads, aa.r, aa.split) > 132
@@ -285,11 +291,13 @@ def test_kernel_model_matches_plain_twins(rng, layout, decim, n):
         threads, r, split = layout
         geo = tiling.Geometry(threads=threads, r=r, split=min(split, decim))
     yf = model_kernel(tail, x, n, g.astype(np.complex128), n_out, decim, geo)
-    # B1: the model's sums, rotated per output as the epilogue does
-    got = rotate_output(torch.from_numpy(yf.astype(np.complex64)), _t(ph),
-                        _t(inc), decim).numpy()
     args = (torch.from_numpy(x), torch.from_numpy(tail), torch.from_numpy(h),
             decim)
+    # B2: the model's sums with complex taps, unrotated
+    _close(yf, txc.xlating_fir_ctaps_block_plain(*args, _t(inc)).numpy())
+    # B1: the same sums, rotated per output as the epilogue does
+    got = rotate_output(torch.from_numpy(yf.astype(np.complex64)), _t(ph),
+                        _t(inc), decim).numpy()
     _close(got, txf.xlating_fir_block_plain(*args, _t(ph), _t(inc)).numpy())
     # B3: real taps
     y3 = model_kernel(tail, x, n, h.astype(np.float64), n_out, decim, geo)

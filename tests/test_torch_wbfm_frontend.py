@@ -144,6 +144,39 @@ def test_b2_plain_twin_matches_jax_pallas_interpret(rng, inc):
     _close(blk.numpy(), ref, 1e-5)
 
 
+@pytest.mark.parametrize("inc", WRAP_INCS)
+@pytest.mark.parametrize("decim,n", [(8, 8192), (4, 8192), (8, 8192 + 5),
+                                     (5, 8190), (4, 1001), (5, 37), (8, 9)])
+def test_b2_plain_twin_matches_jax_at_wrap_heavy_increments(rng, inc, decim,
+                                                            n):
+    """``xlating_fir_ctaps_block``'s plain twin, ragged and short blocks
+    at decim 4, 5 and 8, against the JAX package as its own tests run it
+    on the CPU: rotated by ``rotate_output``, against the XLA
+    channelizer ``xlating_fir_decimate_frame``; unrotated, against
+    ``xlating_fir_frame_pallas`` in interpret mode where that kernel takes
+    the shape. The JAX side gets the frame cut to whole outputs: the last
+    ``n % decim`` samples reach no output."""
+    h = jfir.prepare_taps(_taps(), decim)
+    x, tail = _cnoise(rng, n), _cnoise(rng, h.shape[0])
+    th, tinc = torch.from_numpy(h), torch.tensor(inc)
+    got = txc.xlating_fir_ctaps_block(torch.from_numpy(x),
+                                      torch.from_numpy(tail), th, decim,
+                                      tinc).numpy()
+    n_out = n // decim
+    assert got.shape == (n_out,)
+    frame = jnp.asarray(np.concatenate([tail[1:], x[:n_out * decim]]))
+    phase0 = 0xFFFFF000
+    ref = jfir.xlating_fir_decimate_frame(frame, jnp.asarray(h), decim,
+                                          jnp.uint32(phase0), jnp.uint32(inc))
+    rot = twf.rotate_output(torch.from_numpy(got), torch.tensor(phase0), tinc,
+                            decim)
+    _close(rot.numpy(), ref, 1e-5)
+    if jwf.supported(n_out * decim, decim):
+        _close(got, jwf.xlating_fir_frame_pallas(frame, h, decim,
+                                                 jnp.uint32(inc),
+                                                 interpret=True), 1e-5)
+
+
 def test_b2_wrappers_run_plain_on_the_cpu():
     """On CPU tensors the wrappers run the plain twin and count nothing."""
     h = torch.from_numpy(jfir.prepare_taps(_taps(), DECIM))
