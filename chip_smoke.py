@@ -26,9 +26,23 @@ failure of which exits non-zero:
    is busy; a checkpoint after block 8 restored into a fresh executor;
 7. times from CUDA events after warm-up: each kernel, its plain version
    and the one-call library equivalent where there is one, beside its
-   bound and the launch floor (a back-to-back empty kernel); both
-   chains' step time and Msamp/s; the resampler's two forms; a
-   torch.profiler breakdown of chain steps (``chiprun_out/``).
+   bound and the launch floor (a back-to-back empty kernel); the WBFM
+   chains' step times and torch.profiler breakdowns (``chiprun_out/``);
+   the resampler's two forms;
+8. the other BASELINE configurations, each driven through its entry
+   points over several blocks, its launches counted like phase 3, its
+   first block(s) run again by the port on the CPU and held to the card
+   at the CPU tests' tolerances: config 1 (resampler 250e3/48e3 -> AGC,
+   2^20-sample blocks; |out| settles to the reference), config 3
+   (``build_spectrum`` at 4096 bins with and without the waterfall, a
+   tone in its bin at 0 dBFS; ``build_fac`` at its defaults;
+   ``PeakDetector(min_diff=0.1)`` marking planted peaks), config 4
+   (``MusicDOA(8, 1, 512)`` over 256 frames, planted angles found within
+   1 degree) and config 5 (the 16-slot ``DynamicChannelBank`` at 2^17
+   blocks on the slot-batched channelizer, once per step, against its
+   plain backend, with an add, a removal and a retune mid-run, and an FM
+   tone that comes back on its slot), then timed and profiled like the
+   chains.
 
 B3's row counts the launches of both its entry points and times the
 block entry point, which the cascade chain's ``FIRDecimator`` launches;
@@ -52,10 +66,16 @@ import numpy as np
 import torch
 
 from grbaz_tpu_torch.core.executor import InputSpec, StreamExecutor
+from grbaz_tpu_torch.core.graph import Flowgraph
 from grbaz_tpu_torch.core.pump import StreamPump
 from grbaz_tpu_torch.core.stream import Stream
+from grbaz_tpu_torch.models.spectral import (FACConfig, SpectralConfig,
+                                             build_fac, build_spectrum)
 from grbaz_tpu_torch.models.wbfm import WBFMConfig, WBFMFrontend, build_wbfm
-from grbaz_tpu_torch.ops import exact, fir
+from grbaz_tpu_torch.ops import doa, exact, fir
+from grbaz_tpu_torch.ops.agc import AGC
+from grbaz_tpu_torch.ops.colour import Colouriser
+from grbaz_tpu_torch.ops.detect import PeakDetector
 from grbaz_tpu_torch.ops.cuda import build
 from grbaz_tpu_torch.ops.cuda import fir_decimate as fd
 from grbaz_tpu_torch.ops.cuda import tiling
@@ -66,6 +86,7 @@ from grbaz_tpu_torch.ops.fir import FreqXlatingFIRDecimator
 from grbaz_tpu_torch.ops.resampler import (FractionalResampler,
                                            resample_block,
                                            resample_block_rational)
+from grbaz_tpu_torch.parallel.channel_bank import DynamicChannelBank
 
 FS = 3.2e6
 BLOCK = 1 << 20
@@ -96,13 +117,27 @@ KERNELS = {  # row -> (wrappers whose launches it counts, source, TPU kernel)
         (xc.xlating_fir_ctaps_block,),
         "grbaz_tpu_torch/csrc/xlating_fir_ctaps.cu",
         "grbaz_tpu/ops/pallas/wbfm_frontend.py:218"),
+    # B1's slot-batched entry point, the channel bank's channelizer
+    "xlating_fir_bank": (
+        (xf.xlating_fir_bank,), "grbaz_tpu_torch/csrc/xlating_fir.cu",
+        "grbaz_tpu/ops/pallas/wbfm_frontend.py:621"),
 }
 # kernels each path launches; xlating_fir_frame_rtf is the
 # frame-convention entry point of the channelizer kernel, which the JAX
 # package calls only from its tests
 MAIN_PATH_KERNELS = ("xlating_fir_block", "fir_decimate_frame")
 FUSED_PATH_KERNELS = ("xlating_fir_ctaps_block",)
+BANK_PATH_KERNELS = ("xlating_fir_bank",)
 PUMP_BLOCKS = 16
+# BASELINE config 5 (benchmarks.py: bench_bank): 16 slots over 2^17-sample
+# blocks, channels at linspace(-1.2 MHz, 1.2 MHz, 16), an FM station on
+# each at BANK_DEV_HZ deviation; slot BANK_TONE_SLOT's carries TONE_HZ
+BANK_SLOTS = 16
+BANK_BLOCK = 1 << 17
+BANK_TONE_SLOT = 10
+BANK_DEV_HZ = 5e3
+PATH_BLOCKS = 4       # blocks of each config-1, -3 and -4 path
+BANK_BLOCKS = 8
 
 
 def reset_launches() -> None:
@@ -139,15 +174,18 @@ def synth_fm(n: int, device: torch.device, seed: int = 0) -> torch.Tensor:
             + torch.view_as_complex(noise))
 
 
-def tone_sinad(audio: np.ndarray, rate: float):
+def tone_sinad(audio: np.ndarray, rate: float, band_hz: float = None):
     """(peak frequency, SINAD dB) with a Blackman-Harris window; the
-    signal is the peak bin +-8, the rest above DC is noise+distortion."""
+    signal is the peak bin +-8, the rest above DC (and below ``band_hz``,
+    where given) is noise+distortion."""
     n = len(audio)
     k = np.arange(n)
     w = (0.35875 - 0.48829 * np.cos(2 * np.pi * k / (n - 1))
          + 0.14128 * np.cos(4 * np.pi * k / (n - 1))
          - 0.01168 * np.cos(6 * np.pi * k / (n - 1)))
     p = np.abs(np.fft.rfft((audio - audio.mean()) * w)) ** 2
+    if band_hz is not None:
+        p = p[: int(band_hz * n / rate)]
     p[:9] = 0.0
     pk = int(np.argmax(p))
     sig = p[max(pk - 8, 0):pk + 9].sum()
@@ -305,7 +343,37 @@ def kernel_cases(dev):
              geometry=tiling.for_tensor(frames[0], n_out, tpad, DECIM, 4),
              nbytes=8 * (tpad - 1 + BLOCK) + 4 * tpad + 8 * n_out,
              flops=4 * tpad * n_out),
+        bank_case(dev, gen, h_chan),
     ]
+
+
+def bank_case(dev, gen, h_chan):
+    """B1's slot-batched entry point at the channel bank's shape (16
+    slots, 2^17 samples in). Its work is B1's function per slot, as
+    B1's row counts it: rotate the block (6 FLOP a sample), then a
+    real-tap FIR (4 FLOP a tap an output); not the 8 FLOP a tap of the
+    factored form the kernel happens to compute. Its bytes: the shared
+    block once, each slot's history, phase and increment, and the
+    outputs. No one library call rotates and filters per slot."""
+    tpad, c = h_chan.shape[0], BANK_SLOTS
+    n_out = BANK_BLOCK // DECIM
+    xs = copies(lambda: torch.view_as_complex(torch.randn(
+        BANK_BLOCK, 2, generator=gen, device=dev)), 8 * BANK_BLOCK)
+    hist = torch.view_as_complex(torch.randn(c, tpad - 1, 2, generator=gen,
+                                             device=dev)).contiguous()
+    ph = torch.randint(0, 2 ** 32, (c,), generator=gen, device=dev)
+    inc = torch.tensor([int(exact.freq_to_turns_u32(-f, FS))
+                        for f in BANK_FREQS], device=dev)
+    return dict(name="xlating_fir_bank", shape=f"{c} slots",
+                kernel=lambda i: xf.xlating_fir_bank(
+                    xs[i % len(xs)], hist, h_chan, DECIM, ph, inc),
+                plain=lambda i: xf.xlating_fir_bank_plain(
+                    xs[i % len(xs)], hist, h_chan, DECIM, ph, inc),
+                library=None,
+                geometry=tiling.for_tensor(xs[0], c * n_out, tpad, DECIM, 8),
+                nbytes=8 * BANK_BLOCK + 8 * c * (tpad - 1) + 4 * tpad
+                + 16 * c + 8 * c * n_out,
+                flops=c * (6 * BANK_BLOCK + 4 * tpad * n_out))
 
 
 def ctaps_case(h_chan, inc, tail, xs):
@@ -350,17 +418,11 @@ def check_kernels(cases):
 
 
 def run_chain(cfg, dev, iq, n_blocks):
-    fg, handles = build_wbfm(cfg, device=dev)
-    step = fg.compile().step
-    states, params = fg.init_states(), fg.init_params()
-    outs = []
-    for b in range(n_blocks):
-        x = iq[b * BLOCK:(b + 1) * BLOCK]
-        states, o = step(states, params,
-                         {"iq": Stream.full(x, sample_rate=FS)})
-        outs.append({k: (s.data, s.count) for k, s in o.items()})
-    torch.cuda.synchronize()
-    return fg, outs
+    """The WBFM chain of ``cfg`` over the first ``n_blocks`` blocks of
+    ``iq`` (see :func:`run_graph`)."""
+    return run_graph(build_wbfm(cfg, device=dev)[0],
+                     [iq[b * BLOCK:(b + 1) * BLOCK] for b in range(n_blocks)],
+                     FS)
 
 
 def valid(outs, port):
@@ -370,17 +432,12 @@ def valid(outs, port):
 def main_path(dev, iq):
     cfg = WBFMConfig(block_size=BLOCK, audio_chain="cascade",
                      center_freq=STATION_HZ)
-    reset_launches()
-    _, kern = run_chain(cfg, dev, iq, N_BLOCKS)
-    launches = launch_counts()
-    print(f"main path launches over {N_BLOCKS} blocks: {launches}")
-    for name in MAIN_PATH_KERNELS:
-        check(launches[name] == N_BLOCKS, f"main path launched {name} "
-              f"{launches[name]} times, not once per block")
-
-    _, plain = run_chain(dataclasses.replace(cfg, chan_backend="plain"), dev,
-                         iq, N_BLOCKS)
-    check(launch_counts() == launches, "the plain backend launched a kernel")
+    kern, launches = counted("main path", MAIN_PATH_KERNELS, N_BLOCKS,
+                             lambda: run_chain(cfg, dev, iq, N_BLOCKS))
+    plain, _ = counted(
+        "main path (plain backend)", (), N_BLOCKS,
+        lambda: run_chain(dataclasses.replace(cfg, chan_backend="plain"),
+                          dev, iq, N_BLOCKS))
     for port in ("audio", "quad"):
         a, b = valid(kern, port), valid(plain, port)
         check([len(v) for v in a] == [len(v) for v in b], f"{port} counts")
@@ -453,21 +510,15 @@ def fused_path(dev, iq):
     for squelch in (None, -20.0):
         cfg = WBFMConfig(block_size=BLOCK, fused=True, center_freq=STATION_HZ,
                          squelch_db=squelch)
-        reset_launches()
-        _, kern = run_chain(cfg, dev, iq, N_BLOCKS)
-        counts = launch_counts()
-        print(f"fused path (squelch {squelch}) launches over {N_BLOCKS} "
-              f"blocks: {counts}")
-        for name in KERNELS:
-            want = N_BLOCKS if name in FUSED_PATH_KERNELS else 0
-            check(counts[name] == want, f"fused path launched {name} "
-                  f"{counts[name]} times, not {want}")
+        what = f"fused path (squelch {squelch})"
+        kern, counts = counted(what, FUSED_PATH_KERNELS, N_BLOCKS,
+                               lambda: run_chain(cfg, dev, iq, N_BLOCKS))
         if squelch is None:
             launches = counts
-        _, plain = run_chain(dataclasses.replace(cfg, fused_backend="plain"),
-                             dev, iq, N_BLOCKS)
-        check(launch_counts() == counts,
-              "the plain fused backend launched a kernel")
+        plain, _ = counted(
+            what + " (plain backend)", (), N_BLOCKS,
+            lambda: run_chain(dataclasses.replace(cfg, fused_backend="plain"),
+                              dev, iq, N_BLOCKS))
         for port in ("audio", "quad"):
             a, b = valid(kern, port), valid(plain, port)
             check([len(v) for v in a] == [len(v) for v in b],
@@ -493,7 +544,7 @@ def fused_path(dev, iq):
         if squelch is None:
             fused_quad = torch.cat(valid(kern, "quad"))
     # B2 against B1: the unfused fractional chain's quad
-    _, unfused = run_chain(WBFMConfig(block_size=BLOCK, center_freq=STATION_HZ),
+    unfused = run_chain(WBFMConfig(block_size=BLOCK, center_freq=STATION_HZ),
                            dev, iq, N_BLOCKS)
     uq = torch.cat(valid(unfused, "quad"))
     check(uq.shape == fused_quad.shape, "fused and unfused quad counts")
@@ -509,7 +560,7 @@ def pump_phase(dev):
     and checkpoint / resume, all against the Flowgraph run."""
     cfg = WBFMConfig(block_size=BLOCK, fused=True, center_freq=STATION_HZ)
     iq = synth_fm(PUMP_BLOCKS * BLOCK, dev, seed=2)
-    _, ref = run_chain(cfg, dev, iq, PUMP_BLOCKS)
+    ref = run_chain(cfg, dev, iq, PUMP_BLOCKS)
     ref_q = [q.cpu().numpy() for q in valid(ref, "quad")]
     ref_a = [a.cpu().numpy() for a in valid(ref, "audio")]
     host = iq.cpu().numpy()
@@ -594,17 +645,80 @@ def pump_phase(dev):
           f"of a fresh executor bit-equal to the uninterrupted run")
 
 
-def chain_runner(dev, iq, cfg, backend):
-    """A function ``run(steps)`` that runs that many chained steps of the
-    chain on ``backend`` and returns the CUDA-event ms per step. Every
-    block's audio feeds a checksum, so no stage is dead code."""
-    fg, _ = build_wbfm(dataclasses.replace(cfg, chan_backend=backend,
-                                           fused_backend=backend), device=dev)
+# ---------------------------------------------------------------------------
+# the other BASELINE configurations
+# ---------------------------------------------------------------------------
+
+def one_block_graph(block):
+    """A Flowgraph of one block, so every path runs through a step."""
+    fg = Flowgraph(block.name)
+    fg.input("iq", block)
+    fg.output("out", (block, 0))
+    for p in range(1, block.n_out):
+        fg.output(f"out{p}", (block, p))
+    return fg
+
+
+def run_graph(fg, blocks, rate, control=None):
+    """Steps of ``fg`` over ``blocks`` (into its one input port):
+    ``[{port: (data, count)}]``; ``control(params, b)`` runs before block
+    b."""
     step = fg.compile().step
-    params = fg.init_params()
-    xs = [iq[b * BLOCK:(b + 1) * BLOCK] for b in range(N_BLOCKS)]
-    carry = dict(states=fg.init_states(), acc=torch.zeros((), device=dev),
-                 i=0)
+    states, params = fg.init_states(), fg.init_params()
+    port = next(iter(fg.in_ports))
+    outs = []
+    for b, x in enumerate(blocks):
+        if control is not None:
+            control(params, b)
+        states, o = step(states, params,
+                         {port: Stream.full(x, sample_rate=rate)})
+        outs.append({k: (v.data, v.count) for k, v in o.items()})
+    if blocks[0].is_cuda:
+        torch.cuda.synchronize()
+    return outs
+
+
+def counted(what, kernels, n_blocks, fn):
+    """Run ``fn()`` with every launch count set to 0 just before it; each
+    kernel of ``kernels`` must launch once per block, every other none."""
+    reset_launches()
+    out = fn()
+    counts = launch_counts()
+    print(f"{what} launches over {n_blocks} blocks: {counts}")
+    for name, n in counts.items():
+        want = n_blocks if name in kernels else 0
+        check(n == want, f"{what} launched {name} {n} times, not {want}")
+    return out, counts
+
+
+def snr_db(ref, got) -> float:
+    ref = np.asarray(ref, np.complex128)
+    err = np.mean(np.abs(ref - np.asarray(got, np.complex128)) ** 2)
+    return float("inf") if err == 0 else \
+        10 * np.log10(np.mean(np.abs(ref) ** 2) / err)
+
+
+def close_spectra(got, want, scale, what):
+    """dB spectra in linear power (``scale`` 10, or 20 for magnitudes)
+    within 1e-5 of each frame's max, the CPU tests' bar."""
+    pg = 10.0 ** (got.astype(np.float64) / scale)
+    pw = 10.0 ** (want.astype(np.float64) / scale)
+    fmax = pw.max(axis=-1, keepdims=True)
+    err = float((np.abs(pg - pw) / fmax).max())
+    check(got.shape == want.shape and err <= 1e-5,
+          f"{what}: card and CPU spectra differ ({err:.3e} of frame max)")
+    return err
+
+
+def graph_timer(fg, xs, rate, params=None, ports=None):
+    """``run(steps)``: CUDA-event ms per step of ``fg`` over ``xs`` in
+    turn, the outputs ``ports`` (default every output) summed into a
+    checksum that must stay finite."""
+    step = fg.compile().step
+    params = fg.init_params() if params is None else params
+    port = next(iter(fg.in_ports))
+    carry = dict(states=fg.init_states(),
+                 acc=torch.zeros((), device=xs[0].device), i=0)
 
     def run(steps):
         start = torch.cuda.Event(enable_timing=True)
@@ -613,16 +727,315 @@ def chain_runner(dev, iq, cfg, backend):
         for _ in range(steps):
             x = xs[carry["i"] % len(xs)]
             states, o = step(carry["states"], params,
-                             {"iq": Stream.full(x, sample_rate=FS)})
-            carry.update(states=states, i=carry["i"] + 1,
-                         acc=carry["acc"] + o["audio"].data.sum())
+                             {port: Stream.full(x, sample_rate=rate)})
+            acc = carry["acc"]
+            for v in (o.values() if ports is None
+                      else (o[p] for p in ports)):
+                d = v.data.real if v.data.is_complex() else v.data
+                acc = acc + d.to(torch.float32).sum()
+            carry.update(states=states, i=carry["i"] + 1, acc=acc)
         end.record()
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(carry["acc"])), "chain checksum")
+        check(bool(torch.isfinite(carry["acc"])), "path checksum")
         return start.elapsed_time(end) / steps
 
     run(3)  # warm-up
     return run
+
+
+def time_path(label, fg, xs, rate, per_step, unit, scale=1e6, params=None,
+              steps=10):
+    """Median CUDA-event step time over 3 rounds, the rate (``per_step``
+    items a step, in units of ``scale`` a second), and the profiled kernel
+    time and idle share."""
+    run = graph_timer(fg, xs, rate, params)
+    ms = statistics.median(run(steps) for _ in range(3))
+    print(f"path {label}: step {ms:.4f} ms (events, median of 3 rounds of "
+          f"{steps}) = {per_step / (ms / 1e3) / scale:.2f} {unit}")
+    profile_chain(run, ms, label)
+    return ms
+
+
+def config1_path(dev):
+    """BASELINE config 1 (benchmarks.py: bench_resampler_agc): the
+    fractional resampler 250e3/48e3 into AGC(1e-4, 1.0) at 2^20-sample
+    blocks, on a tone at 0.3 with noise."""
+    def graph(device):
+        fg = Flowgraph("cfg1")
+        rs = FractionalResampler(BLOCK, 250e3 / 48e3, name="rs",
+                                 device=device)
+        ag = AGC(1e-4, 1.0, name="agc", device=device)
+        fg.input("iq", rs)
+        fg.chain(rs, ag)
+        fg.output("out", ag)
+        return fg
+
+    n = PATH_BLOCKS * BLOCK
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    x = (0.3 * torch.polar(torch.ones_like(t), 0.01 * t).to(torch.complex64)
+         + 0.003 * torch.view_as_complex(torch.randn(
+             n, 2, generator=gen, device=dev)))
+    xs = [x[b * BLOCK:(b + 1) * BLOCK] for b in range(PATH_BLOCKS)]
+    outs, _ = counted("config 1", (), PATH_BLOCKS,
+                      lambda: run_graph(graph(dev), xs, 250e3))
+    y, c = outs[-1]["out"]
+    mag = y[: int(c)].abs()
+    check(bool(torch.isfinite(mag).all()), "config 1 finite")
+    settled = float(mag[-10000:].mean())
+    print(f"config 1: {sum(int(o['out'][1]) for o in outs)} outputs over "
+          f"{PATH_BLOCKS} blocks; last block |out| mean {settled:.6f} "
+          f"(reference 1.0)")
+    check(abs(settled - 1.0) < 0.01, "config 1 AGC did not settle to 1.0")
+    cpu = run_graph(graph("cpu"), [xs[0].cpu()], 250e3)
+    (gy, gc), (cy, cc) = outs[0]["out"], cpu[0]["out"]
+    check(int(gc) == int(cc), "config 1 card and CPU counts")
+    snr = snr_db(cy[: int(cc)].numpy(), gy[: int(gc)].cpu().numpy())
+    print(f"config 1 block 0, card vs CPU: SNR {snr:.2f} dB (bar 90)")
+    check(snr > 90.0, "config 1 card and CPU differ")
+    time_path("config1", graph(dev), xs, 250e3, BLOCK, "Msamp/s")
+
+
+def spectral_path(dev):
+    """BASELINE config 3: build_spectrum at 4096 bins with and without the
+    waterfall, on a unit tone on bin TONE_BIN (0 dBFS) with noise."""
+    size, tone_bin = 4096, 300
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def blocks(block, k):
+        t = torch.arange(k * block, dtype=torch.float64, device=dev)
+        x = (torch.polar(torch.ones_like(t), 2 * np.pi * torch.frac(
+            t * tone_bin / size)).to(torch.complex64)
+            + 1e-3 * torch.view_as_complex(torch.randn(
+                k * block, 2, generator=gen, device=dev)))
+        return [x[b * block:(b + 1) * block] for b in range(k)]
+
+    xs = blocks(BLOCK, PATH_BLOCKS)
+    for waterfall in (False, True):
+        cfg = SpectralConfig(fft_size=size, block_size=BLOCK,
+                             waterfall=waterfall)
+        label = "spectrum" + ("_waterfall" if waterfall else "")
+        outs, _ = counted(label, (), PATH_BLOCKS, lambda: run_graph(
+            build_spectrum(cfg, device=dev)[0], xs, 250e3))
+        spec, c = outs[-1]["spectra"]
+        check(int(c) == BLOCK // size and spec.shape == (BLOCK // size, size),
+              f"{label} shape")
+        last = spec[-1].cpu().numpy()
+        pk = int(np.argmax(last))
+        print(f"{label}: peak bin {pk} at {last[pk]:.4f} dBFS (want bin "
+              f"{tone_bin + size // 2} at 0), floor "
+              f"{float(np.median(last)):.1f} dB")
+        check(pk == tone_bin + size // 2 and abs(last[pk]) < 0.05,
+              f"{label}: the tone is not in its bin at 0 dBFS")
+        cpu = run_graph(build_spectrum(cfg, device="cpu")[0],
+                           [xs[0].cpu()], 250e3)
+        err = close_spectra(outs[0]["spectra"][0].cpu().numpy(),
+                            cpu[0]["spectra"][0].numpy(), 10.0, label)
+        msg = f"{label} block 0, card vs CPU: {err:.3e} of frame max"
+        if waterfall:
+            raster = outs[0]["raster"][0].cpu().numpy()
+            col = Colouriser(cfg.vmin, cfg.vmax, device="cpu")
+            _, (ref,) = col.apply(None, col.init_params(), Stream.full(
+                outs[0]["spectra"][0].cpu()))
+            check(np.array_equal(raster, ref.data.numpy()),
+                  "waterfall bytes differ from the CPU colouriser's")
+            msg += "; raster bytes equal the CPU colouriser's"
+        print(msg)
+        time_path(label, build_spectrum(cfg, device=dev)[0], xs, 250e3,
+                  BLOCK, "Msamp/s")
+
+    cfg = FACConfig()
+    fblock = cfg.block_size
+    fxs = blocks(fblock, 8)
+    outs, _ = counted("fac", (), len(fxs), lambda: run_graph(
+        build_fac(cfg, device=dev)[0], fxs, cfg.sample_rate))
+    kept = [int(o["fac"][1]) for o in outs]
+    check(sum(kept) >= 5, f"fac kept {kept} frames")
+    cpu = run_graph(build_fac(cfg, device="cpu")[0],
+                       [f.cpu() for f in fxs[:2]], cfg.sample_rate)
+    errs = []
+    for g, c in zip(outs[:2], cpu):
+        k = int(c["fac"][1])
+        check(int(g["fac"][1]) == k, "fac card and CPU counts")
+        if k:
+            d = g["fac"][0][:k].cpu().numpy()
+            check(bool(np.isfinite(d).all()), "fac finite")
+            errs.append(close_spectra(d, c["fac"][0][:k].numpy(), 20.0,
+                                      "fac"))
+    print(f"fac: kept {kept} frames over {len(fxs)} blocks of {fblock}; "
+          f"blocks 0-1, card vs CPU: {max(errs):.3e} of frame max")
+    time_path("fac", build_fac(cfg, device=dev)[0], fxs, cfg.sample_rate,
+              fblock, "Msamp/s")
+
+
+def peak_path(dev):
+    """PeakDetector(min_diff=0.1) over a 2^20-sample power stream: a
+    noise floor with planted bumps (some across block boundaries); marks
+    exactly at the bumps' apexes."""
+    n = PATH_BLOCKS * BLOCK
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = 1e-3 * torch.rand(n, generator=gen, device=dev)
+    apex = torch.arange(1000, n - 8, 4099, device=dev)
+    bump = torch.tensor([0.2, 0.5, 0.8, 1.0, 0.8, 0.5, 0.2], device=dev)
+    x[apex[:, None] + torch.arange(-3, 4, device=dev)] += bump
+    xs = [x[b * BLOCK:(b + 1) * BLOCK] for b in range(PATH_BLOCKS)]
+
+    def graph(device):
+        return one_block_graph(PeakDetector(min_diff=0.1, name="peak",
+                                            device=device))
+
+    outs, _ = counted("peak detector", (), PATH_BLOCKS,
+                      lambda: run_graph(graph(dev), xs, 1.0))
+    marks = torch.cat([o["out"][0] for o in outs])
+    found = torch.nonzero(marks).flatten()
+    print(f"peak detector: {len(found)} marks over {PATH_BLOCKS} blocks, "
+          f"{len(apex)} planted")
+    check(torch.equal(found, apex), "peak marks are not at the planted apexes")
+    diffs = torch.cat([o["out1"][0] for o in outs])[found[1:]]
+    check(bool((diffs == 4099).all()), "peak idx_diff")
+    cpu = run_graph(graph("cpu"), [xs[0].cpu()], 1.0)
+    for port in ("out", "out1"):
+        check(torch.equal(outs[0][port][0].cpu(), cpu[0][port][0]),
+              f"peak detector {port}: card and CPU differ")
+    print("peak detector block 0, card vs CPU: marks and idx_diff equal")
+    time_path("peak_detector", graph(dev), xs, 1.0, BLOCK, "Msamp/s")
+
+
+def music_path(dev):
+    """BASELINE config 4: MusicDOA(8, 1, 512) over 256 frames of 512
+    snapshots (one 2^20-sample block of 8 antennas), one source a frame
+    at a planted angle on the 0.5-degree grid, 10 dB SNR. The package's
+    covariance is x^H x of snapshot rows, so a source reads at angle
+    theta when its rows are s * conj(a(theta)) (rows s * a(theta) read
+    at pi - theta; the JAX package's tests plant mirror-symmetric angle
+    sets, where the two agree)."""
+    m, navg, frames = 8, 512, BLOCK // (8 * 512)
+    steer = torch.from_numpy(doa.ula_steering_vectors(m, 360)).to(dev)
+    bins = 40 + (torch.arange(frames, device=dev) * 3) % 280
+    xs = []
+    for b in range(PATH_BLOCKS):
+        gen = torch.Generator(device=dev).manual_seed(20 + b)
+        s = torch.view_as_complex(torch.randn(frames, navg, 2, generator=gen,
+                                              device=dev)) / np.sqrt(2)
+        noise = torch.view_as_complex(torch.randn(
+            frames, navg, m, 2, generator=gen, device=dev)) / np.sqrt(2)
+        x = s[..., None] * steer[bins].conj()[:, None, :] + 0.316 * noise
+        xs.append(x.reshape(frames, navg * m).contiguous())
+
+    def graph(device):
+        return one_block_graph(doa.MusicDOA(m, 1, navg, name="music",
+                                            device=device))
+
+    syncs = doa.signal_subspace.host_syncs
+    outs, _ = counted("music", (), PATH_BLOCKS,
+                      lambda: run_graph(graph(dev), xs, 1.0))
+    syncs = (doa.signal_subspace.host_syncs - syncs) / PATH_BLOCKS
+    got = torch.stack([o["out1"][0][:, 0] for o in outs])
+    off = (got - bins[None]).abs()
+    print(f"music: {PATH_BLOCKS} x {frames} frames; peaks off the planted "
+          f"angle by at most {float(off.max()) * 0.5:.1f} degrees; "
+          f"{syncs:.1f} host syncs a call")
+    check(int(off.max()) <= 2, "music peaks more than 1 degree off")
+    cpu = run_graph(graph("cpu"), [xs[0].cpu()], 1.0)
+    gs, cs = outs[0]["out"][0].cpu().numpy(), cpu[0]["out"][0].numpy()
+    check(np.array_equal(outs[0]["out1"][0].cpu().numpy(),
+                         cpu[0]["out1"][0].numpy()), "music card/CPU peaks")
+    # the whole spectrum, peaks included, as the JAX package's bar
+    db = np.abs(10 * np.log10(gs / cs))
+    near = np.abs(np.arange(360)[None] - bins.cpu().numpy()[:, None]) <= 2
+    print(f"music block 0, card vs CPU: peaks equal, spectra within "
+          f"{db.max():.4f} dB (bar 0.2; {db[near].max():.4f} dB within "
+          f"1 degree of the planted peaks)")
+    check(db.max() < 0.2, "music card and CPU spectra differ")
+    time_path("music", graph(dev), xs, 1.0, frames, "scans/s", scale=1.0)
+
+
+def bank_graph(device, backend="auto"):
+    bank = DynamicChannelBank(BANK_SLOTS, FS, DECIM, 150e3, 75e3,
+                              backend=backend, name="bank", device=device)
+    return one_block_graph(bank), bank
+
+
+BANK_FREQS = np.linspace(-1.2e6, 1.2e6, BANK_SLOTS)
+
+
+def bank_control(bank):
+    """Host control of the bank between blocks: every channel added
+    before block 0, one removed before block 3, one retuned onto another
+    station before block 4, and the freed slot reused at a new station
+    before block 5."""
+    def control(params, b):
+        pr = params["bank"]
+        if b == 0:
+            for f in BANK_FREQS:
+                bank.add_channel(pr, float(f))
+        elif b == 3:
+            bank.remove_channel(pr, 5)
+        elif b == 4:
+            bank.retune(pr, 2, float(BANK_FREQS[12]))
+        elif b == 5:
+            check(bank.add_channel(pr, float(BANK_FREQS[13])) == 5,
+                  "bank slot reuse")
+    return control
+
+
+def bank_path(dev):
+    """BASELINE config 5 (benchmarks.py: bench_bank): the 16-slot bank at
+    2^17-sample blocks over an FM station on every channel (slot k's
+    tone at 3 kHz + k*100 Hz, slot BANK_TONE_SLOT's at TONE_HZ) and
+    noise 50 dB down. Every slot then demodulates a signal: a channel
+    with nothing in it demodulates the phase of its stopband leakage,
+    where f32 rounding flips angles by 2 pi."""
+    n = BANK_BLOCKS * BANK_BLOCK
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = 0.003 * torch.view_as_complex(torch.randn(n, 2, generator=gen,
+                                                  device=dev))
+    for k, f in enumerate(BANK_FREQS):
+        tone = TONE_HZ if k == BANK_TONE_SLOT else 3e3 + 100 * k
+        ph = 2 * np.pi * torch.frac(t * (f / FS)) + 0.7 * k \
+            + (BANK_DEV_HZ / tone) * torch.sin(2 * np.pi * torch.frac(
+                t * (tone / FS)))
+        x = x + torch.polar(torch.ones_like(t), ph).to(torch.complex64)
+    xs = [x[b * BANK_BLOCK:(b + 1) * BANK_BLOCK] for b in range(BANK_BLOCKS)]
+    fg, bank = bank_graph(dev)
+    kern, counts = counted("bank", BANK_PATH_KERNELS, BANK_BLOCKS,
+                           lambda: run_graph(fg, xs, FS, bank_control(bank)))
+    fg, bank = bank_graph(dev, "plain")
+    plain, _ = counted("bank (plain backend)", (), BANK_BLOCKS,
+                       lambda: run_graph(fg, xs, FS, bank_control(bank)))
+    kq = torch.cat([o["out"][0] for o in kern], dim=1)
+    pq = torch.cat([o["out"][0] for o in plain], dim=1)
+    check(bool(torch.isfinite(kq).all()), "bank quad finite")
+    err, scale = float((kq - pq).abs().max()), float(pq.abs().max())
+    print(f"bank: {BANK_SLOTS} slots x {kq.shape[1]} outputs, kernel vs "
+          f"plain max_abs_err {err:.3e} (bar {1e-4 * scale:.3e})")
+    check(err < 1e-4 * scale, "bank kernel and plain backends differ")
+    act = kern[-1]["out1"][0].cpu().numpy()
+    check(act.tolist() == [1] * BANK_SLOTS, "bank active flags")
+    check(not kq[5, 3 * (BANK_BLOCK // DECIM):5 * (BANK_BLOCK // DECIM)]
+          .any(), "a removed slot's output is not zero")
+    audio = kq[BANK_TONE_SLOT, BANK_BLOCK // DECIM:].cpu().numpy()
+    # the neighbours' leakage beats at the 160 kHz channel spacing, far
+    # above the audio band, where a receiver's audio filter takes it out
+    f, sinad = tone_sinad(audio, FS / DECIM, band_hz=15e3)
+    print(f"bank slot {BANK_TONE_SLOT} tone: {f:.2f} Hz, SINAD {sinad:.2f} "
+          f"dB below 15 kHz over {len(audio)} samples")
+    check(abs(f - TONE_HZ) < 5.0 and sinad > 30.0, "bank tone")
+    fg_cpu, bank_cpu = bank_graph("cpu")
+    cpu = run_graph(fg_cpu, [xs[0].cpu()], FS, bank_control(bank_cpu))
+    g, c = kern[0]["out"][0].cpu(), cpu[0]["out"][0]
+    cerr = float((g - c).abs().max())
+    print(f"bank block 0, card vs CPU: max_abs_err {cerr:.3e} "
+          f"(bar {1e-4 * float(c.abs().max()):.3e})")
+    check(cerr < 1e-4 * float(c.abs().max()), "bank card and CPU differ")
+    fg, bank = bank_graph(dev)
+    params = fg.init_params()
+    bank_control(bank)(params, 0)
+    ms = time_path("bank", fg, xs, FS, BANK_BLOCK, "Msamp/s wideband",
+                   params=params)
+    print(f"bank: {BANK_SLOTS * BANK_BLOCK / ms / 1e3:.2f} Mchan-samp/s")
+    return counts
 
 
 def profile_chain(run, step_ms: float, label: str):
@@ -650,14 +1063,18 @@ def profile_chain(run, step_ms: float, label: str):
           f"step {prof_ms:.4f} ms under the profiler, {step_ms:.4f} ms "
           f"without (events); device busy {100 * busy:.1f}%, idle "
           f"{100 * (1 - busy):.1f}% of the unprofiled step")
-    for row in table.splitlines()[:18]:
+    for row in table.splitlines()[:12]:
         print("  " + row)
 
 
 def chain_timing(dev, iq, cfg, label, rounds=6, steps=20):
     """Step time of the kernel and plain backends in alternating rounds
-    (the host's share of the step varies from run to run)."""
-    runs = {b: chain_runner(dev, iq, cfg, b) for b in ("auto", "plain")}
+    (the host's share of the step varies from run to run). The checksum
+    reads the audio only, so the step is the chain and one sum."""
+    xs = [iq[b * BLOCK:(b + 1) * BLOCK] for b in range(N_BLOCKS)]
+    runs = {b: graph_timer(build_wbfm(dataclasses.replace(
+        cfg, chan_backend=b, fused_backend=b), device=dev)[0], xs, FS,
+        ports=("audio",)) for b in ("auto", "plain")}
     times = {b: [] for b in runs}
     for r in range(rounds):
         for b in (("auto", "plain") if r % 2 == 0 else ("plain", "auto")):
@@ -725,6 +1142,15 @@ def main() -> int:
     chain_timing(dev, iq, WBFMConfig(block_size=BLOCK, fused=True,
                                      center_freq=STATION_HZ), "fused_chain")
     resampler_timing(dev)
+    # the other configurations after the WBFM chains' timing: their
+    # profiled runs then cannot touch the chains' step times
+    config1_path(dev)
+    spectral_path(dev)
+    peak_path(dev)
+    music_path(dev)
+    bank_launches = bank_path(dev)
+    for name in BANK_PATH_KERNELS:
+        launches[name] = bank_launches[name]
 
     table = []
     for r in rows:

@@ -26,10 +26,13 @@ from grbaz_tpu_torch.core.device import take
 
 
 def onepole_scan(b: torch.Tensor, a, y0: torch.Tensor) -> torch.Tensor:
-    """All-samples one-pole recurrence ``y[k] = a*y[k-1] + b[k]``.
+    """All-samples one-pole recurrence ``y[k] = a*y[k-1] + b[k]`` along
+    dim 0.
 
     ``a`` is a python float or a 0-d float32 tensor (rounded to float32,
-    as the JAX package does); ``y0`` is ``y[-1]``. Returns float32 [n].
+    as the JAX package does); ``y0`` is ``y[-1]``. ``b`` is [n] or, for
+    a frame-to-frame average, [n, ...] with ``y0`` of its trailing shape.
+    Returns float32 of ``b``'s shape.
     """
     y = b.to(torch.float32)
     n = y.shape[0]
@@ -38,7 +41,7 @@ def onepole_scan(b: torch.Tensor, a, y0: torch.Tensor) -> torch.Tensor:
     if not isinstance(a, torch.Tensor):
         a = float(np.float32(a))
     exps = torch.arange(1, n + 1, dtype=torch.float32, device=y.device)
-    a_pows = torch.pow(a, exps)
+    a_pows = torch.pow(a, exps).reshape((n,) + (1,) * (y.dim() - 1))
     ad, d = a, 1
     while d < n:
         y = torch.cat([y[:d], y[d:] + ad * y[:-d]])

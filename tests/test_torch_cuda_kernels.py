@@ -373,3 +373,107 @@ def test_dispatch_does_not_wait_for_the_card(dev):
     # reads the 250 kHz phase step
     assert np.abs(quad_on).max() < 1e-3
     assert np.abs(quad_off).mean() > 0.1
+
+
+def _bank_inputs(gen, slots, n, decim, dev, wrap):
+    h = _taps(decim, dev)
+    hist = _cn(gen, slots * (h.shape[0] - 1), dev).reshape(slots, -1)
+    if wrap:  # phases and increments that wrap every few samples
+        ph = gen.integers(2 ** 32 - 4096, 2 ** 32, slots)
+        inc = gen.integers(2 ** 31, 2 ** 32, slots)
+    else:
+        ph = gen.integers(0, 2 ** 32, slots)
+        inc = gen.integers(0, 2 ** 26, slots)
+    return (_cn(gen, n, dev), hist, h, torch.from_numpy(ph).to(dev),
+            torch.from_numpy(inc).to(dev))
+
+
+@pytest.mark.parametrize("slots", [1, 3, 16])
+@pytest.mark.parametrize("n,decim", [(1 << 17, 8), (8192 + 24, 8), (1000, 4),
+                                     (37, 8)])
+@pytest.mark.parametrize("wrap", [False, True])
+def test_xlating_fir_bank_kernel_matches_plain(dev, slots, n, decim, wrap):
+    """The slot-batched entry point against its plain twin (B1's plain
+    twin slot by slot), one launch for all slots, and each slot against
+    B1's single-slot kernel."""
+    gen = np.random.default_rng(slots * 1000 + n + decim + wrap)
+    x, hist, h, ph, inc = _bank_inputs(gen, slots, n, decim, dev, wrap)
+    before = xf.xlating_fir_bank.launches
+    got = xf.xlating_fir_bank(x, hist, h, decim, ph, inc)
+    ref = xf.xlating_fir_bank_plain(x, hist, h, decim, ph, inc)
+    torch.cuda.synchronize()
+    assert xf.xlating_fir_bank.launches == before + 1
+    assert got.shape == ref.shape == (slots, n // decim)
+    assert _err(got, ref) < 1e-5
+    pad = torch.zeros(slots, 1, dtype=torch.complex64, device=dev)
+    tails = torch.cat([pad, hist], dim=1)
+    for c in range(slots):
+        one = xf.xlating_fir_block_kernel(x, tails[c], h, decim, ph[c],
+                                          inc[c])
+        assert _err(one, got[c]) < 1e-5, c
+
+
+def test_xlating_fir_bank_refuses_bad_input(dev):
+    gen = np.random.default_rng(5)
+    x, hist, h, ph, inc = _bank_inputs(gen, 4, 4096, 8, dev, False)
+    with pytest.raises(TypeError):
+        xf.xlating_fir_bank(x, hist, h, 8, ph[:3], inc)
+    with pytest.raises(TypeError):
+        xf.xlating_fir_bank(x, hist, h, 8, ph, inc.to(torch.int32))
+    with pytest.raises(ValueError):
+        xf.xlating_fir_bank(x, hist[:, 1:], h, 8, ph, inc)
+    with pytest.raises(ValueError):
+        xf.xlating_fir_bank(x, hist.cpu(), h, 8, ph, inc)
+    with pytest.raises(TypeError):
+        xf.xlating_fir_bank(x.real, hist, h, 8, ph, inc)
+    # straight through the C entry point: no slot, or a bad geometry, is
+    # refused with cudaErrorInvalidValue (1) and never launched
+    tpad, n_out = h.shape[0], 512
+    y = torch.empty(4, n_out, dtype=torch.complex64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    good = tiling.for_tensor(x, 4 * n_out, tpad, 8, 8)
+    lib = xf._lib()
+
+    def launch(slots, geo):
+        return lib.xlating_fir_bank(
+            x.data_ptr(), hist.data_ptr(), 4096, h.data_ptr(),
+            ph.data_ptr(), inc.data_ptr(), y.data_ptr(), n_out, tpad, 8,
+            slots, geo, stream)
+    assert launch(0, good) == 1
+    assert launch(65536, good) == 1
+    assert launch(4, tiling.Geometry(good.threads, 0, good.split)) == 1
+    assert launch(4, good) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [1 << 17, 1000])
+def test_channel_bank_kernel_arm_equals_plain_arm(dev, n):
+    """DynamicChannelBank over 4 chained blocks with inactive slots, a
+    removal, a retune and a reused slot: the kernel arm (one launch per
+    block) against the plain arm, outputs and state."""
+    gen = np.random.default_rng(n)
+    blocks = [_cn(gen, n, dev) for _ in range(4)]
+    from grbaz_tpu_torch.parallel.channel_bank import DynamicChannelBank
+    outs, states = {}, {}
+    before = xf.xlating_fir_bank.launches
+    for backend in ("kernel", "plain"):
+        bank = DynamicChannelBank(16, FS, 8, 150e3, 75e3, backend=backend,
+                                  device=dev)
+        st, pr, qs = bank.init_state(), bank.init_params(), []
+        for f in (-1.2e6, -400e3, 250e3, 900e3):
+            bank.add_channel(pr, f)
+        for b, x in enumerate(blocks):
+            if b == 1:
+                bank.remove_channel(pr, 1)
+                bank.retune(pr, 2, 600e3)
+            if b == 2:
+                assert bank.add_channel(pr, -700e3) == 1
+            st, (q, act) = bank.apply(st, pr, Stream.full(x))
+            qs.append(q.data)
+        outs[backend], states[backend] = torch.cat(qs, dim=1), st
+    assert xf.xlating_fir_bank.launches == before + len(blocks)
+    assert _err(outs["kernel"], outs["plain"]) < 1e-4
+    assert not outs["kernel"][4:].any()  # never-active slots stay zero
+    for k in ("tail", "prev"):
+        assert _err(states["kernel"][k], states["plain"][k]) < 1e-5, k
+    assert torch.equal(states["kernel"]["phase"], states["plain"]["phase"])

@@ -28,13 +28,22 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'grbaz_tpu' or m.startswith('grbaz_tpu.'))\n"
-        "print(len([m for m in sys.modules if m.startswith('grbaz_tpu_torch')]))\n"
+        "print(' '.join(m for m in sys.modules\n"
+        "               if m.startswith('grbaz_tpu_torch')))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 15  # every module was imported
+    loaded = set(res.stdout.split())
+    assert len(loaded) >= 24  # every module was imported
+    assert NEW_MODULES <= loaded, NEW_MODULES - loaded
+
+
+# the modules of BASELINE configs 1, 3, 4 and 5
+NEW_MODULES = {f"grbaz_tpu_torch.{m}" for m in (
+    "ops.agc", "ops.spectral", "ops.colour", "ops.segments", "ops.detect",
+    "ops.doa", "models.spectral", "parallel.channel_bank")}
 
 
 @pytest.mark.parametrize("path", _port_sources(),
