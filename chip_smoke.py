@@ -42,7 +42,26 @@ failure of which exits non-zero:
    blocks on the slot-batched channelizer, once per step, against its
    plain backend, with an add, a removal and a retune mid-run, and an FM
    tone that comes back on its slot), then timed and profiled like the
-   chains.
+   chains;
+9. the burst path (``burst_path``): TimeKeeper, Gate (retriggerable and
+   not), RadarDetector, BurstTagger -> BurstBuffer, Burster -> Merge,
+   two Correlators (127-tap FFT and 63-tap direct) and the lockout
+   PeakDetector on the FSM kernel (``csrc/peak_fsm.cu``, one launch a
+   block), over 8 blocks of 2^20 samples with planted pulses and syncs
+   from absolute sample 2^32 - 2^19 (the limb carry mid-run); every
+   pulse and sync found at its exact absolute start, no peak marked in
+   the pulses planted inside a lockout, blocks 0-1 held to
+   the port on the CPU (event rows, limbs, lengths, marks, idx_diff and
+   the gated signal bit for bit; correlation surfaces within 1e-5 of the
+   max; radar sums within 1e-5 relative), then timed and profiled.
+
+The FSM kernel's cases run at the burst path's [1, 2^20] (its row) and
+at the decoder-bank shape [64, 2^14], the latter also with a smoothed
+average and a look-ahead; each is held to its plain version over two
+chained calls (marks, idx_diff and the carried state equal) on pulses
+that fall inside lockouts, with a lockout that crosses the calls, and
+its bound is the larger of its bytes and its serial chain:
+n steps of ``FSM_CHAIN_CYCLES`` at the card's maximum SM clock.
 
 B3's row counts the launches of both its entry points and times the
 block entry point, which the cascade chain's ``FIRDecimator`` launches;
@@ -65,19 +84,24 @@ import time
 import numpy as np
 import torch
 
+from grbaz_tpu_torch.core.block import FnBlock
 from grbaz_tpu_torch.core.executor import InputSpec, StreamExecutor
 from grbaz_tpu_torch.core.graph import Flowgraph
 from grbaz_tpu_torch.core.pump import StreamPump
-from grbaz_tpu_torch.core.stream import Stream
+from grbaz_tpu_torch.core.stream import Stream, StreamMeta, decode_abs_index
 from grbaz_tpu_torch.models.spectral import (FACConfig, SpectralConfig,
                                              build_fac, build_spectrum)
 from grbaz_tpu_torch.models.wbfm import WBFMConfig, WBFMFrontend, build_wbfm
 from grbaz_tpu_torch.ops import doa, exact, fir
 from grbaz_tpu_torch.ops.agc import AGC
+from grbaz_tpu_torch.ops.burst import (BurstBuffer, Burster, BursterConfig,
+                                       BurstTagger, Gate, Merge, TimeKeeper,
+                                       decode_abs_events)
 from grbaz_tpu_torch.ops.colour import Colouriser
-from grbaz_tpu_torch.ops.detect import PeakDetector
+from grbaz_tpu_torch.ops.detect import Correlator, PeakDetector, RadarDetector
 from grbaz_tpu_torch.ops.cuda import build
 from grbaz_tpu_torch.ops.cuda import fir_decimate as fd
+from grbaz_tpu_torch.ops.cuda import peak_fsm as pf
 from grbaz_tpu_torch.ops.cuda import tiling
 from grbaz_tpu_torch.ops.cuda import xlating_fir as xf
 from grbaz_tpu_torch.ops.cuda import xlating_fir_ctaps as xc
@@ -121,6 +145,11 @@ KERNELS = {  # row -> (wrappers whose launches it counts, source, TPU kernel)
     "xlating_fir_bank": (
         (xf.xlating_fir_bank,), "grbaz_tpu_torch/csrc/xlating_fir.cu",
         "grbaz_tpu/ops/pallas/wbfm_frontend.py:621"),
+    # the lockout / look-ahead PeakDetector's serial FSM (the JAX package's
+    # per-sample lax.scan, not a Pallas kernel)
+    "peak_fsm": (
+        (pf.peak_fsm,), "grbaz_tpu_torch/csrc/peak_fsm.cu",
+        "grbaz_tpu/ops/detect.py:236"),
 }
 # kernels each path launches; xlating_fir_frame_rtf is the
 # frame-convention entry point of the channelizer kernel, which the JAX
@@ -128,6 +157,7 @@ KERNELS = {  # row -> (wrappers whose launches it counts, source, TPU kernel)
 MAIN_PATH_KERNELS = ("xlating_fir_block", "fir_decimate_frame")
 FUSED_PATH_KERNELS = ("xlating_fir_ctaps_block",)
 BANK_PATH_KERNELS = ("xlating_fir_bank",)
+BURST_PATH_KERNELS = ("peak_fsm",)
 PUMP_BLOCKS = 16
 # BASELINE config 5 (benchmarks.py: bench_bank): 16 slots over 2^17-sample
 # blocks, channels at linspace(-1.2 MHz, 1.2 MHz, 16), an FM station on
@@ -138,6 +168,30 @@ BANK_TONE_SLOT = 10
 BANK_DEV_HZ = 5e3
 PATH_BLOCKS = 4       # blocks of each config-1, -3 and -4 path
 BANK_BLOCKS = 8
+# the burst path: the stream starts 2^19 samples before the low limb
+# wraps; pulses of PULSE_LEN samples at amplitude 1.5 (power 2.25: above
+# the gate's 0.5 and the radar's 1.0) behind a two-sample ramp, and syncs
+# at amplitude 0.4 (power below 0.36 with the noise: under both)
+BURST_ABS0 = 2 ** 32 - 2 ** 19
+PULSE_LEN = 24
+BURST_WINDOW = 4096     # the correlators' window and the buffer's max_len
+FSM_CONFIG = dict(min_diff=0.5, lockout=64)
+# a second FSM case: a smoothed average (alpha < 1 takes the kernel's
+# fused multiply-add through every step) and a look-ahead
+FSM_SMOOTHED = dict(min_diff=0.5, lockout=64, alpha=0.3, drop=0.2,
+                    look_ahead=8)
+# a second pulse this many samples after a first starts inside the
+# first's 64-sample lockout (its emission comes after the first's
+# peak) and after the retriggerable gate's 55 open samples
+LOCKED_GAP = 60
+# the FSM kernel's dependent chain per sample, in cycles: the loop-carried
+# path of csrc/peak_fsm.cu's walk in its SASS (cuobjdump -sass of the
+# built library) runs from the lockout count through five dependent
+# instructions back to it (ISETP unlocked & update, FSEL peak, FADD peak -
+# first, FSETP qualifies, SEL the new count), at 4 cycles each, the
+# Hopper ALU pipes' latency from one instruction to a dependent one; see
+# PERF.md
+FSM_CHAIN_CYCLES = 20
 
 
 def reset_launches() -> None:
@@ -227,9 +281,16 @@ def copies(make, nbytes: int):
     return [make() for _ in range(max(1, -(-160_000_000 // nbytes)))]
 
 
-def bound_ms(nbytes: int, flops: int):
+def bound_ms(nbytes: int, flops: int, serial_steps: int = 0,
+             sm_clock_mhz: float = 0.0):
+    """The larger of bytes over the memory rate and operations over the
+    f32 peak; for a serial FSM (``serial_steps`` > 0) the operations are
+    its dependent chain, ``serial_steps * FSM_CHAIN_CYCLES`` cycles at
+    the maximum SM clock."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_F32 * 1e3
+    if serial_steps:
+        t_ops = serial_steps * FSM_CHAIN_CYCLES / (sm_clock_mhz * 1e6) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -243,6 +304,11 @@ def report():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    print(f"maximum SM clock: {clock:.0f} MHz")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -254,7 +320,7 @@ def report():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    return smi
+    return smi, clock
 
 
 def kernel_cases(dev):
@@ -344,7 +410,83 @@ def kernel_cases(dev):
              nbytes=8 * (tpad - 1 + BLOCK) + 4 * tpad + 8 * n_out,
              flops=4 * tpad * n_out),
         bank_case(dev, gen, h_chan),
+        fsm_case(dev, 3, 1, BLOCK, "burst path"),
+        fsm_case(dev, 4, 64, 1 << 14, "decoder bank"),
+        fsm_case(dev, 5, 64, 1 << 14, "decoder bank, smoothed, look-ahead",
+                 FSM_SMOOTHED),
     ]
+
+
+def fsm_block(rng, rows, n):
+    """[rows, n] float32 power rows for the FSM cases: a noise floor at
+    2e-3 with pulses (a ramp of 1-4 samples up to 0.2-1.5, then 0-20
+    samples held within 3%) after gaps of 12-100 samples, so that many
+    start inside the previous pulse's lockout; then a quiet stretch and a
+    two-sample bump (0.1, 1.0) at n-31, which emits at n-29 and leaves 36
+    samples of a 64-sample lockout to the next block; and the same bump at
+    5, which that lockout swallows when the blocks are chained."""
+    x = 2e-3 * rng.random((rows, n))
+    for r in range(rows):
+        p = 100
+        while p < n - 250:
+            ramp, hold = int(rng.integers(1, 5)), int(rng.integers(0, 21))
+            h = rng.uniform(0.2, 1.5)
+            x[r, p:p + ramp] = h * np.arange(1, ramp + 1) / ramp
+            x[r, p + ramp:p + ramp + hold] = h * rng.uniform(0.97, 1.03, hold)
+            p += ramp + hold + int(rng.integers(12, 101))
+        x[r, [5, 6, n - 31, n - 30]] = (0.1, 1.0, 0.1, 1.0)
+    return x.astype(np.float32)
+
+
+def fsm_case(dev, seed, rows, n, shape, config=FSM_CONFIG):
+    """The FSM kernel of ``PeakDetector(**config)`` on ``rows`` power
+    streams of ``n`` samples (:func:`fsm_block`), chained from the stream
+    start: the kernel and plain functions each walk one block; the check
+    walks two chained blocks with both and holds marks, idx_diff and the
+    carried state equal. It also checks that the data exercise the
+    config: the lockout crosses the blocks in every row, and with the
+    lockout (and look-ahead, where set) at 0 the kernel marks otherwise.
+    Its bytes: the input and both outputs once, the state in and out."""
+    cfg = PeakDetector(**config, device="cpu").fsm_config()
+    rng = np.random.default_rng(seed)
+    xs = [torch.from_numpy(fsm_block(rng, rows, n)).to(dev) for _ in range(2)]
+    st0 = {k: v.reshape(1).expand(rows).contiguous()
+           for k, v in PeakDetector(device=dev).init_state().items()}
+    thr = torch.full((1,), float("-inf"), device=dev)
+    label = f"peak_fsm [{shape}]"
+
+    def chain(fn, **over):
+        st, out = st0, []
+        for x in xs:
+            m, i, st = fn(x, st, thr, **dict(cfg, **over))
+            out.append((m, i, st))
+        return out
+
+    def held():
+        kern, plain = chain(pf.peak_fsm), chain(pf.peak_fsm_plain)
+        torch.cuda.synchronize()
+        for (mk, ik, st_k), (mp, ip, st_p) in zip(kern, plain):
+            same = torch.equal(mk, mp) and torch.equal(ik, ip) and all(
+                torch.equal(st_k[k], st_p[k]) for k in st_p)
+            check(same, f"{label} differs from its plain version")
+            check(int(mk.sum()) > 0, f"{label} marked nothing")
+        check(bool((kern[0][2]["lockout_count"] > 0).all()),
+              f"{label}: the lockout does not cross the blocks")
+        for knob in ("lockout", "look_ahead"):
+            if cfg[knob]:
+                off = chain(pf.peak_fsm, **{knob: 0})
+                check(any(not torch.equal(a[0], b[0])
+                          for a, b in zip(kern, off)),
+                      f"{label}: the data do not exercise {knob}")
+        return kern[-1][0], plain[-1][0]
+
+    return dict(name="peak_fsm", shape=f"{shape}, [{rows}, {n}]",
+                kernel=lambda i: pf.peak_fsm(xs[i % 2], st0, thr, **cfg)[0],
+                plain=lambda i: pf.peak_fsm_plain(xs[i % 2], st0, thr,
+                                                  **cfg)[0],
+                check=held, iters=10, plain_iters=1, library=None,
+                nbytes=12 * rows * n + 2 * 40 * rows + 4, flops=0,
+                serial_steps=n)
 
 
 def bank_case(dev, gen, h_chan):
@@ -401,7 +543,8 @@ def ctaps_case(h_chan, inc, tail, xs):
 
 def check_kernels(cases):
     for c in cases:
-        got, ref = c["kernel"](0), c["plain"](0)
+        got, ref = c["check"]() if "check" in c else (c["kernel"](0),
+                                                       c["plain"](0))
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         bar = 1e-5 * float(ref.abs().max())
@@ -659,20 +802,25 @@ def one_block_graph(block):
     return fg
 
 
-def run_graph(fg, blocks, rate, control=None):
+def run_graph(fg, blocks, rate, control=None, abs_index=None):
     """Steps of ``fg`` over ``blocks`` (into its one input port):
     ``[{port: (data, count)}]``; ``control(params, b)`` runs before block
-    b."""
+    b. With ``abs_index`` the stream's absolute index starts there and
+    advances block by block (else each block starts at 0)."""
     step = fg.compile().step
     states, params = fg.init_states(), fg.init_params()
     port = next(iter(fg.in_ports))
+    meta = None if abs_index is None else StreamMeta.start(
+        rate, abs_index=abs_index, device=blocks[0].device)
     outs = []
     for b, x in enumerate(blocks):
         if control is not None:
             control(params, b)
-        states, o = step(states, params,
-                         {port: Stream.full(x, sample_rate=rate)})
+        states, o = step(states, params, {port: Stream.full(
+            x, meta=meta, sample_rate=rate)})
         outs.append({k: (v.data, v.count) for k, v in o.items()})
+        if meta is not None:
+            meta = meta.advanced(x.shape[0])
     if blocks[0].is_cuda:
         torch.cuda.synchronize()
     return outs
@@ -710,10 +858,12 @@ def close_spectra(got, want, scale, what):
     return err
 
 
-def graph_timer(fg, xs, rate, params=None, ports=None):
+def graph_timer(fg, xs, rate, params=None, ports=None, bits_ports=()):
     """``run(steps)``: CUDA-event ms per step of ``fg`` over ``xs`` in
     turn, the outputs ``ports`` (default every output) summed into a
-    checksum that must stay finite."""
+    checksum that must stay finite; ``bits_ports`` (event rows with
+    bitcast fields, which may hold NaN patterns) are summed as their
+    int32 bit patterns."""
     step = fg.compile().step
     params = fg.init_params() if params is None else params
     port = next(iter(fg.in_ports))
@@ -729,9 +879,12 @@ def graph_timer(fg, xs, rate, params=None, ports=None):
             states, o = step(carry["states"], params,
                              {port: Stream.full(x, sample_rate=rate)})
             acc = carry["acc"]
-            for v in (o.values() if ports is None
-                      else (o[p] for p in ports)):
-                d = v.data.real if v.data.is_complex() else v.data
+            for p in (o if ports is None else ports):
+                d = o[p].data
+                if p in bits_ports:
+                    d = d.view(torch.int32)
+                elif d.is_complex():
+                    d = d.real
                 acc = acc + d.to(torch.float32).sum()
             carry.update(states=states, i=carry["i"] + 1, acc=acc)
         end.record()
@@ -744,11 +897,11 @@ def graph_timer(fg, xs, rate, params=None, ports=None):
 
 
 def time_path(label, fg, xs, rate, per_step, unit, scale=1e6, params=None,
-              steps=10):
+              steps=10, bits_ports=()):
     """Median CUDA-event step time over 3 rounds, the rate (``per_step``
     items a step, in units of ``scale`` a second), and the profiled kernel
     time and idle share."""
-    run = graph_timer(fg, xs, rate, params)
+    run = graph_timer(fg, xs, rate, params, bits_ports=bits_ports)
     ms = statistics.median(run(steps) for _ in range(3))
     print(f"path {label}: step {ms:.4f} ms (events, median of 3 rounds of "
           f"{steps}) = {per_step / (ms / 1e3) / scale:.2f} {unit}")
@@ -1038,6 +1191,237 @@ def bank_path(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the burst path
+# ---------------------------------------------------------------------------
+
+def burst_scene(dev):
+    """(iq [8 * 2^20] complex64, pulse starts, the starts of pulses inside
+    a lockout, sync starts {L: starts}, syncs {L: complex64}): noise at
+    0.05 rms; per block 12 pulses of PULSE_LEN samples (random phases,
+    amplitude 1.5, behind a ramp of 0.25 and 0.45) and a 13th LOCKED_GAP
+    samples after the first, inside its peak lockout; one pulse that
+    straddles the first block boundary; a pair LOCKED_GAP apart whose
+    second pulse opens the third block, so that the lockout crosses the
+    boundary; 6 syncs of 127 and 6 of 63 random-phase samples at
+    amplitude 0.4, each far from the pulses and in its own window."""
+    n = N_BLOCKS * BLOCK
+    rng = np.random.default_rng(15)
+    x = (0.05 / np.sqrt(2)) * (rng.standard_normal(n)
+                               + 1j * rng.standard_normal(n))
+    locked = [b * BLOCK + 40000 + LOCKED_GAP for b in range(N_BLOCKS)] \
+        + [2 * BLOCK]
+    pulses = sorted([b * BLOCK + 40000 + 85000 * k for b in range(N_BLOCKS)
+                     for k in range(12)]
+                    + [BLOCK - 10, 2 * BLOCK - LOCKED_GAP] + locked)
+    for p in pulses:
+        x[p - 2:p] += np.array([0.25, 0.45]) * np.exp(0.3j)
+        x[p:p + PULSE_LEN] += 1.5 * np.exp(2j * np.pi * rng.random(PULSE_LEN))
+    syncs, sync_at = {}, {}
+    for L, first in ((127, 10000), (63, 95000)):
+        syncs[L] = np.exp(2j * np.pi * rng.random(L)).astype(np.complex64)
+        sync_at[L] = [b * BLOCK + first + 170000 * k
+                      for b in range(N_BLOCKS) for k in range(6)]
+        for p in sync_at[L]:
+            x[p:p + L] += 0.4 * syncs[L]
+    iq = torch.from_numpy(x.astype(np.complex64)).to(dev)
+    return iq, pulses, locked, sync_at, syncs
+
+
+def burst_graph(device, syncs):
+    """TimeKeeper -> (power, gates, radar, tagger -> buffer, burster ->
+    merge, two correlators, the lockout peak detector)."""
+    fg = Flowgraph("burst")
+    tk = TimeKeeper(name="time", device=device)
+    power = FnBlock(lambda x: x.real * x.real + x.imag * x.imag,
+                    name="power")
+    over = FnBlock(lambda p: (p > 0.5).to(torch.uint8), name="over")
+    zeros = FnBlock(torch.zeros_like, name="zeros")
+    lo_field = FnBlock(lambda e: e[:, 1].contiguous(), name="lo_field")
+    gate = Gate(threshold=0.5, trigger_length=32, name="gate", device=device)
+    fixed = Gate(threshold=0.5, trigger_length=32, retriggerable=False,
+                 name="fixed", device=device)
+    radar = RadarDetector(base_level=0.1, threshold_db=10.0, name="radar",
+                          device=device)
+    tagger = BurstTagger(BURST_WINDOW, name="tagger", device=device)
+    bbuf = BurstBuffer(BURST_WINDOW, name="bbuf", device=device)
+    burster = Burster(BursterConfig(burst_length=1024, interval=32768,
+                                    sample_interval=True, max_bursts=32),
+                      name="burster", device=device)
+    merge = Merge(1024, name="merge")
+    corr = {L: Correlator(s, BURST_WINDOW, 0.7 * 0.4 * L, 16,
+                          name=f"corr{L}", device=device)
+            for L, s in syncs.items()}
+    peak = PeakDetector(**FSM_CONFIG, name="peak", device=device)
+    fg.input("iq", tk)
+    fg.connect(tk, power)
+    for blk in (gate, fixed):
+        fg.connect(tk, (blk, 0))
+        fg.connect(power, (blk, 1))
+    fg.chain(power, radar)
+    fg.chain(power, over, tagger)
+    fg.connect(tk, (bbuf, 0))
+    fg.connect((tagger, 0), (bbuf, 1))
+    fg.connect((tagger, 1), (bbuf, 2))
+    fg.connect(tk, burster)
+    fg.chain(tk, zeros)
+    fg.connect(zeros, (merge, 0))
+    fg.connect((burster, 0), (merge, 1))
+    fg.connect((burster, 1), lo_field)
+    fg.connect(lo_field, (merge, 2))
+    for c in corr.values():
+        fg.connect(tk, c)
+    fg.chain(power, peak)
+    outs = dict(report=(tk, 1), gated=gate, gate_ev=(gate, 1),
+                fixed_gated=fixed, fixed_ev=(fixed, 1), radar=radar,
+                frames=bbuf, lens=(bbuf, 1), bursts=burster,
+                burst_ev=(burster, 1), merged=merge, marks=peak,
+                idx_diff=(peak, 1))
+    for L, c in corr.items():
+        outs[f"surf{L}"], outs[f"trig{L}"] = c, (c, 1)
+    for name, ep in outs.items():
+        fg.output(name, ep)
+    return fg
+
+
+def events(outs, port, decode=decode_abs_events):
+    return np.concatenate([decode(o[port][0].cpu(), int(o[port][1]))
+                           for o in outs])
+
+
+def check_burst_outputs(outs, iq, pulses, locked, sync_at, syncs):
+    """Every planted pulse and sync at its exact absolute start; a buffer
+    frame from each pulse that does not fall in an earlier frame; a peak
+    mark in each pulse but those inside a lockout."""
+    want = BURST_ABS0 + np.array(pulses, np.float64)
+    for port, length in (("gate_ev", PULSE_LEN + 31), ("fixed_ev", 32)):
+        ev = events(outs, port)
+        check(np.array_equal(ev[:, 0], want) and (ev[:, 1] == length).all(),
+              f"{port}: starts or lengths are not the planted pulses'")
+    rad = events(outs, "radar", RadarDetector.decode_events)
+    check(np.array_equal(rad[:, 0], np.array(pulses, np.float64))
+          and (rad[:, 1] == PULSE_LEN).all() and (rad[:, 2] > 1.0).all(),
+          "radar events are not the planted pulses")
+    x = iq.cpu().numpy()
+    frames = [(o["frames"][0][k].cpu().numpy(), int(o["lens"][0][k]))
+              for o in outs for k in range(int(o["frames"][1]))]
+    opened = []
+    for p in pulses:
+        if not opened or p >= opened[-1] + BURST_WINDOW:
+            opened.append(p)
+    check(len(frames) == len(opened) and all(
+        ln == BURST_WINDOW and np.array_equal(f, x[p:p + BURST_WINDOW])
+        for (f, ln), p in zip(frames, opened)),
+        "burst buffer frames are not the samples from each pulse on")
+    bev = events(outs, "burst_ev")
+    grid = np.arange(0, N_BLOCKS * BLOCK, 32768, dtype=np.float64)
+    check(np.array_equal(bev[:, 0], BURST_ABS0 + grid)
+          and (bev[:, 1] == 1024).all(), "burster events off the grid")
+    merged = torch.cat([o["merged"][0] for o in outs]).cpu().numpy()
+    win = (np.arange(len(x)) % 32768) < 1024
+    check(np.array_equal(merged[win], x[win]) and not merged[~win].any(),
+          "merged stream differs from the input inside the windows")
+    reports = [decode_abs_index(o["report"][0][0, 0].cpu().numpy(),
+                                o["report"][0][0, 1].cpu().numpy())
+               for o in outs]
+    check(reports == [BURST_ABS0 + b * BLOCK for b in range(N_BLOCKS)],
+          "time keeper reports")
+    marks = torch.cat([o["marks"][0] for o in outs]).cpu().numpy()
+    at = np.nonzero(marks)[0]
+    marked = [p for p in pulses if p not in locked]
+    check(len(at) == len(marked) and all(
+        p <= a < p + PULSE_LEN for a, p in zip(at, marked)),
+        "peak marks are not one in each pulse outside a lockout")
+    diffs = torch.cat([o["idx_diff"][0] for o in outs]).cpu().numpy()
+    check(np.array_equal(diffs[at[1:]], np.diff(at)), "peak idx_diff")
+    extra = {}
+    for L, starts in sync_at.items():
+        hist = L - 1 + 8
+        trig = torch.stack([o[f"trig{L}"][0] for o in outs]).cpu().numpy()
+        surf = torch.stack([o[f"surf{L}"][0] for o in outs]).cpu().numpy()
+        planted = set()
+        for p in starts:
+            b, w = p // BLOCK, (p % BLOCK + hist) // BURST_WINDOW
+            planted.add((b, w))
+            direct = abs(np.vdot(syncs[L].astype(np.complex128),
+                                 x[p:p + L].astype(np.complex128)))
+            check(trig[b, w] > 0 and abs(surf[b, w, 8] - direct)
+                  <= 1e-5 * direct, f"sync {L} at {p} not found there")
+        others = {(int(b), int(w)) for b, w in zip(*np.nonzero(trig))} \
+            - planted
+        # windows where a sync start q overlapping a pulse would peak
+        # (block and window of q + hist)
+        near = {((q + hist) // BLOCK, (q + hist) % BLOCK // BURST_WINDOW)
+                for p in pulses for q in (p - L + 1, p + PULSE_LEN - 1)}
+        check(others <= near, f"correlator {L} fired away from the pulses")
+        extra[L] = len(others)
+    return len(at), extra
+
+
+# outputs whose rows carry bitcast limbs or indices
+BURST_EVENT_PORTS = ("report", "gate_ev", "fixed_ev", "radar", "burst_ev")
+
+
+def same_bits(a, b) -> bool:
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def burst_vs_cpu(card, cpu):
+    """Blocks 0-1 of the card against the port on the CPU."""
+    worst = {}
+    for g, c in zip(card, cpu):
+        for port, (gd, gc) in g.items():
+            cd, cc = c[port]
+            check(int(gc) == int(cc), f"burst {port} counts, card and CPU")
+            if port == "radar":
+                check(same_bits(gd[:, :3], cd[:, :3]), "radar rows' fields")
+                err = float(((gd[:, 3].cpu() - cd[:, 3]).abs()
+                             / cd[:, 3].abs().clamp(min=1e-30)).max())
+                check(err <= 1e-5, f"radar sums differ by {err:.3e}")
+            elif port.startswith(("surf", "trig")):
+                err = float((gd.cpu() - cd).abs().max()
+                            / cd.abs().max().clamp(min=1e-30))
+                check(err <= 1e-5, f"burst {port}: {err:.3e} of max")
+            else:
+                err = 0.0
+                check(same_bits(gd, cd), f"burst {port}: card and CPU differ")
+            worst[port] = max(worst.get(port, 0.0), err)
+    return worst
+
+
+def burst_path(dev):
+    """The burst path over 8 blocks, counted like phase 3, checked against
+    the planted scene and, over blocks 0-1, against the port on the CPU;
+    then timed and profiled."""
+    iq, pulses, locked, sync_at, syncs = burst_scene(dev)
+    xs = [iq[b * BLOCK:(b + 1) * BLOCK] for b in range(N_BLOCKS)]
+    outs, launches = counted(
+        "burst path", BURST_PATH_KERNELS, N_BLOCKS,
+        lambda: run_graph(burst_graph(dev, syncs), xs, FS,
+                          abs_index=BURST_ABS0))
+    n_marks, extra = check_burst_outputs(outs, iq, pulses, locked, sync_at,
+                                         syncs)
+    print(f"burst path: {len(pulses)} pulses (gates, radar, buffer frames, "
+          f"{n_marks} peak marks, none in the {len(locked)} pulses inside a "
+          f"lockout) and {sum(map(len, sync_at.values()))} "
+          f"syncs at their exact absolute starts from {BURST_ABS0}; merge "
+          f"equal to the input in every burster window; correlator "
+          f"triggers near pulses besides the syncs: {extra}")
+    cpu = run_graph(burst_graph("cpu", syncs), [x.cpu() for x in xs[:2]],
+                    FS, abs_index=BURST_ABS0)
+    worst = burst_vs_cpu(outs[:2], cpu)
+    print("burst path blocks 0-1, card vs CPU: bit-equal "
+          + ", ".join(p for p, e in worst.items() if e == 0.0)
+          + "; within bars: " + ", ".join(f"{p} {e:.2e}" for p, e in
+                                          worst.items() if e))
+    time_path("burst", burst_graph(dev, syncs), xs, FS, BLOCK, "Msamp/s",
+              bits_ports=BURST_EVENT_PORTS)
+    return launches
+
+
 def profile_chain(run, step_ms: float, label: str):
     """Kernel time per step and by name, from torch.profiler over 5
     steps. The busy share is that kernel time over ``step_ms``, the
@@ -1111,7 +1495,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = report()
+    smi, sm_clock = report()
 
     cases = kernel_cases(dev)
     check_kernels(cases)
@@ -1127,10 +1511,11 @@ def main() -> int:
     floor_ms = time_ms(lambda i: torch.cuda._sleep(0), 200)
     rows = []
     for c in cases:
-        ms = time_ms(c["kernel"], 200)
-        plain_ms = time_ms(c["plain"], 20)
+        ms = time_ms(c["kernel"], c.get("iters", 200))
+        plain_ms = time_ms(c["plain"], c.get("plain_iters", 20))
         lib_ms = time_ms(c["library"], 200) if c["library"] else None
-        b_ms, b_by = bound_ms(c["nbytes"], c["flops"])
+        b_ms, b_by = bound_ms(c["nbytes"], c["flops"],
+                              c.get("serial_steps", 0), sm_clock)
         label = c["name"] + (f" [{c['shape']}]" if "shape" in c else "")
         print(f"time {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
@@ -1151,6 +1536,9 @@ def main() -> int:
     bank_launches = bank_path(dev)
     for name in BANK_PATH_KERNELS:
         launches[name] = bank_launches[name]
+    burst_launches = burst_path(dev)
+    for name in BURST_PATH_KERNELS:
+        launches[name] = burst_launches[name]
 
     table = []
     for r in rows:

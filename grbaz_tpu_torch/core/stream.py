@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from grbaz_tpu_torch.core.device import U32_MASK, resolve_device, scalar
@@ -58,6 +59,48 @@ def limbs_add_i32(lo: torch.Tensor, hi: torch.Tensor, delta: torch.Tensor):
     carry = (new_lo < du).to(torch.int64)
     sign_ext = torch.where(d32 < 0, U32_MASK, 0)
     return new_lo, (hi + carry + sign_ext) & U32_MASK
+
+
+def bits_to_f32(x: torch.Tensor) -> torch.Tensor:
+    """The 32 bits of uint32 (int64-held, see ``core.device``) or int32
+    values as float32: an exact payload in an f32 event field, where a
+    conversion would round indices past 2^24. Values at or above 2^31 are
+    brought to their int32 bit pattern first, so no out-of-range cast is
+    relied on. Decode with :func:`f32_to_bits` or :func:`decode_u32`.
+
+    The result may hold NaN or denormal bit patterns: move it only with
+    copies (``where``, ``cat``, ``index_select``), never arithmetic."""
+    u = x.to(torch.int64) & U32_MASK
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32) \
+        .view(torch.float32)
+
+
+def f32_to_bits(f: torch.Tensor, dtype=torch.int64) -> torch.Tensor:
+    """Inverse of :func:`bits_to_f32`: the uint32 value in int64 (the
+    port's uint32 convention), or the int32 bit pattern for
+    ``dtype=torch.int32``."""
+    b = f.contiguous().view(torch.int32)
+    if dtype == torch.int32:
+        return b
+    return b.to(torch.int64) & U32_MASK
+
+
+def decode_u32(f) -> np.ndarray:
+    """Host-side decode of bitcast-f32 fields back to uint32."""
+    return np.asarray(f, np.float32).view(np.uint32)
+
+
+def decode_i32(f) -> np.ndarray:
+    """Host-side decode of bitcast-f32 fields back to int32."""
+    return np.asarray(f, np.float32).view(np.int32)
+
+
+def decode_abs_index(hi_f, lo_f) -> "np.ndarray | int":
+    """Host-side decode of a (hi, lo) bitcast-f32 limb pair to the int64
+    absolute sample index."""
+    hi = decode_u32(hi_f).astype(np.int64)
+    lo = decode_u32(lo_f).astype(np.int64)
+    return (hi << 32) | lo
 
 
 @dataclasses.dataclass
@@ -135,6 +178,14 @@ class Stream:
         n = self.data.shape[0]
         return torch.arange(n, dtype=torch.int32,
                             device=self.data.device) < self.count
+
+    def masked_data(self) -> torch.Tensor:
+        """``data`` with the samples past ``count`` set to zero."""
+        mask = self.valid_mask()
+        if self.data.ndim > 1:
+            mask = mask.reshape((-1,) + (1,) * (self.data.ndim - 1))
+        return torch.where(mask, self.data, torch.zeros(
+            (), dtype=self.data.dtype, device=self.data.device))
 
     def like(self, data: torch.Tensor, count=None, *,
              rate_scale: float = 1.0) -> "Stream":

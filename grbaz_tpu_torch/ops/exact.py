@@ -80,17 +80,26 @@ def turns_u32_to_radians(phase_u32: torch.Tensor) -> torch.Tensor:
         _TO_RAD, dtype=torch.float32)
 
 
+def lo_at(phase0: torch.Tensor, inc: torch.Tensor, k: torch.Tensor,
+          conj: bool = False) -> torch.Tensor:
+    """exp(+/- j*2pi*u32(phase0 + k*inc)) at the int64 sample offsets
+    ``k`` (negative offsets reach back before ``phase0``'s sample);
+    ``phase0`` and ``inc`` broadcast against ``k``, so [C, 1] gives [C,
+    len(k)]. complex64."""
+    ang = turns_u32_to_radians((phase0 + k * inc) & U32_MASK)
+    if conj:
+        ang = -ang
+    return torch.complex(torch.cos(ang), torch.sin(ang))
+
+
 def oscillator(n: int, phase0: torch.Tensor, inc: torch.Tensor,
                conj: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """exp(+/- j*2pi*phase) over n samples, plus the next phase0.
 
     Returns ``(lo[n] complex64, phase_after)``.
     """
-    ang = turns_u32_to_radians(phase_ramp_u32(n, phase0, inc))
-    if conj:
-        ang = -ang
-    lo = torch.complex(torch.cos(ang), torch.sin(ang))
-    return lo, (phase0 + n * inc) & U32_MASK
+    k = torch.arange(n, dtype=torch.int64, device=phase0.device)
+    return lo_at(phase0, inc, k, conj), (phase0 + n * inc) & U32_MASK
 
 
 def fixed_positions(n: int, mu_frac0: torch.Tensor, inc_int: torch.Tensor,

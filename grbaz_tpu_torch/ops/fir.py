@@ -157,6 +157,36 @@ def xlating_fir_decimate_frame(frame: torch.Tensor, h_rev_pad: torch.Tensor,
     return rotate_output(yf, phase0, lo_inc, decim)
 
 
+def fft_fir_frame(frame: torch.Tensor, h_rev_pad: torch.Tensor,
+                  decim: int = 1) -> torch.Tensor:
+    """Overlap-save FFT convolution with :func:`fir_decimate_frame`
+    semantics, ``y[k] = sum_t h_rev_pad[t] * frame[k*decim + t]`` over a
+    frame with ``tpad-1`` samples of history; real or complex taps (a
+    sync correlator's are complex). Segments of ``f`` samples (the power
+    of two at or above 4x the taps, at least 256) overlap by ``tpad-1``
+    and run as one batched ``torch.fft``."""
+    tpad = h_rev_pad.shape[0]
+    n_full = frame.shape[0] - (tpad - 1)
+    f = max(256, 1 << int(math.ceil(math.log2(4 * tpad))))
+    step = f - (tpad - 1)          # valid outputs per segment
+    n_seg = -(-n_full // step)
+    fc = frame.to(torch.complex64)
+    pad = (tpad - 1) + n_seg * step - fc.shape[0]
+    if pad > 0:
+        fc = torch.cat([fc, fc.new_zeros(pad)])
+    # segment j covers outputs [j*step, (j+1)*step): frame[j*step:][:f];
+    # y[k] = conv(frame, g)[k + tpad - 1] with g the taps reversed
+    segs = fc.unfold(0, f, step)
+    hf = torch.fft.fft(h_rev_pad.flip(0).to(torch.complex64), n=f)
+    yseg = torch.fft.ifft(torch.fft.fft(segs, dim=1) * hf, dim=1)
+    y = yseg[:, tpad - 1:].reshape(-1)[:n_full]
+    if decim > 1:
+        y = y[::decim][:n_full // decim]
+    if not frame.is_complex():
+        return y.real.to(frame.dtype)
+    return y.to(frame.dtype)
+
+
 def _carry_tail(tail: torch.Tensor, x: torch.Tensor,
                 tail_len: int) -> torch.Tensor:
     if x.shape[0] >= tail_len:
@@ -230,15 +260,23 @@ class FreqXlatingFIRDecimator(Block):
     * the kernel arm (``backend='auto'`` on the card, or ``'kernel'``):
       the CUDA channelizer kernel (``xlating_fir_block``) rotates and
       filters in one pass, reading the new block and the carried tail in
-      place, for any block length; the tail carries UNROTATED samples;
+      place, for any block length;
     * rotate-then-filter (``backend='plain'``, or 'auto' on the CPU):
       oscillator, rotation, then the decimating FIR -- the CUDA
       ``fir_decimate_frame`` kernel when ``fir_kernel=True`` (the JAX
-      ``use_pallas``), else the plain product; the tail carries ROTATED
-      samples.
+      ``use_pallas``), else the plain product.
 
-    The two tail conventions differ, so compare arms by their outputs,
-    not their states.
+    The kernel and rotate-then-filter arms carry one state, the JAX
+    package's CPU layout: a tail of ROTATED samples (the last TPAD of
+    ``x * lo``). The kernel filters an UNROTATED history, so the kernel
+    arm first derotates the carried tail with the current increment
+    (sample i < 0 times ``conj(lo(phase + i*lo_inc))``): the kernel's
+    rotation then gives back the rotated tail even across a retune, where
+    a tail rotated under the old increment meets the new one. After the
+    launch it rotates the block's last TPAD samples into the new tail, as
+    ``parallel/channel_bank.py`` does for its slots; both take the LO at
+    those offsets from :func:`.exact.lo_at`. A checkpoint thus
+    moves between the arms, and between the card and the CPU.
     """
 
     def __init__(self, taps, decim: int, center_freq: float,
@@ -257,6 +295,7 @@ class FreqXlatingFIRDecimator(Block):
         self.dtype = dtype
         self.sample_rate = float(sample_rate)
         self.center_freq0 = float(center_freq)
+        self._offsets = {}   # block length -> _tail_offsets
 
     def init_state(self):
         return dict(tail=torch.zeros(self.tail_len, dtype=self.dtype,
@@ -277,6 +316,15 @@ class FreqXlatingFIRDecimator(Block):
             return False
         return self.backend == "kernel" or self.device.type == "cuda"
 
+    def _tail_offsets(self, n: int) -> torch.Tensor:
+        """int64 ``[-tl .. -1, n-m .. n-1]`` (m = min(n, tl)) on the
+        block's device, made once per block length."""
+        if n not in self._offsets:
+            tl = self.tail_len
+            self._offsets[n] = torch.cat([torch.arange(-tl, 0), torch.arange(
+                n - min(n, tl), n)]).to(self.device)
+        return self._offsets[n]
+
     def apply(self, state, params, x: Stream):
         n = x.data.shape[0]
         phase, lo_inc = state["phase"], params["lo_inc"]
@@ -289,9 +337,14 @@ class FreqXlatingFIRDecimator(Block):
         elif self._use_kernel():
             from grbaz_tpu_torch.ops.cuda.xlating_fir import \
                 xlating_fir_block
-            y = xlating_fir_block(x.data, state["tail"], self.h_rev_pad,
-                                  self.decim, phase, lo_inc)
-            tail = _carry_tail(state["tail"], x.data, self.tail_len)
+            # one LO for the carried tail (samples -tl..-1) and the
+            # block's last m samples
+            tl = self.tail_len
+            m = min(n, tl)
+            lo = exact.lo_at(phase, lo_inc, self._tail_offsets(n))
+            y = xlating_fir_block(x.data, state["tail"] * lo[:tl].conj(),
+                                  self.h_rev_pad, self.decim, phase, lo_inc)
+            tail = _carry_tail(state["tail"], x.data[n - m:] * lo[tl:], tl)
         else:
             lo, _ = exact.oscillator(n, phase, lo_inc)
             xr = x.data * lo

@@ -144,6 +144,31 @@ def seg_prefix_maxpos(reset: torch.Tensor, values: torch.Tensor,
             _gather(positions.to(torch.int32), at, NO_POS))
 
 
+def shift_in(first: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``concat([first], x[:-1])``: each sample's predecessor, the carried
+    ``first`` before sample 0."""
+    return torch.cat([first.reshape(1).to(x.dtype), x[:-1]])
+
+
+def orbit(jump: torch.Tensor, start: torch.Tensor, steps: int) -> torch.Tensor:
+    """``[start, J(start), J(J(start)), ...]``, ``steps`` positions (a
+    power of two) of the jump table ``J = jump`` (int, values in
+    ``[0, len(jump))``), int64 [steps].
+
+    Pointer doubling: each pass appends ``J^k`` of the k positions found
+    so far, then squares the table, so ``steps`` positions take
+    log2(steps) gathers of the positions and one fewer of the table --
+    the event-level scans of the JAX package (a ``lax.scan`` of
+    ``steps`` jumps) without a loop of ``steps`` gathers."""
+    pos = start.reshape(1).to(torch.int64)
+    table = jump.to(torch.int64)
+    while pos.shape[0] < steps:
+        pos = torch.cat([pos, table.index_select(0, pos)])
+        if pos.shape[0] < steps:
+            table = table.index_select(0, table)
+    return pos
+
+
 def next_true_index(mask: torch.Tensor, fill: int) -> torch.Tensor:
     """Index of the first True at or after each sample (``fill`` when none
     remain): a reverse running minimum. int32 [n]."""

@@ -41,13 +41,6 @@ from grbaz_tpu_torch.ops.fir import (BACKENDS, fir_decimate_frame,
                                      low_pass_taps, prepare_taps)
 
 
-def _lo(phase0: torch.Tensor, inc: torch.Tensor, start: int, n: int,
-        conj: bool = False) -> torch.Tensor:
-    """[C, n] LO of :func:`.exact.oscillator` from sample ``start`` on."""
-    p = ((phase0 + start * inc) & U32_MASK)[:, None]
-    return exact.oscillator(n, p, inc[:, None], conj)[0]
-
-
 class DynamicChannelBank(Block):
     """Wideband in -> [capacity, N/decim] FM-demodulated channels out.
 
@@ -127,17 +120,21 @@ class DynamicChannelBank(Block):
     def _channelize(self, x, phase0, inc, tail):
         """(rotated outputs [C, n/decim], new rotated tail [C, hist])."""
         n, hist = x.shape[0], self.hist
+        p, i = phase0[:, None], inc[:, None]
+
+        def span(a, b):
+            return torch.arange(a, b, dtype=torch.int64, device=x.device)
         if self._use_kernel():
             from grbaz_tpu_torch.ops.cuda.xlating_fir import xlating_fir_bank
-            unrot = tail * _lo(phase0, inc, -hist, hist, conj=True)
+            unrot = tail * exact.lo_at(p, i, span(-hist, 0), conj=True)
             y = xlating_fir_bank(x, unrot, self.h_rev_pad, self.decim,
                                  phase0, inc)
             m = min(n, hist)
-            new = x[n - m:] * _lo(phase0, inc, n - m, m)
+            new = x[n - m:] * exact.lo_at(p, i, span(n - m, n))
             if m < hist:
                 new = torch.cat([tail[:, m:], new], dim=1)
             return y, new
-        frames = torch.cat([tail, x * _lo(phase0, inc, 0, n)], dim=1)
+        frames = torch.cat([tail, x * exact.lo_at(p, i, span(0, n))], dim=1)
         y = torch.stack([fir_decimate_frame(f, self.h_rev_pad, self.decim)
                          for f in frames])
         return y, frames[:, -hist:]

@@ -110,11 +110,11 @@ def test_wrappers_count_launches_and_reject_bad_input(dev):
 def test_channel_block_kernel_arm_equals_plain_arm(dev, n):
     """The block on the card through the kernel's block entry point, for
     full, short and ragged blocks, and the plain arm agree over chained
-    blocks (outputs; the arms carry different tails)."""
+    blocks: outputs, and the rotated tail both arms carry."""
     taps = fir.low_pass_taps(1.0, FS, 112.5e3, 75e3)
     gen = np.random.default_rng(7)
     blocks = [_cn(gen, n, dev) for _ in range(3)]
-    outs = {}
+    outs, states = {}, {}
     for backend in ("kernel", "plain"):
         blk = fir.FreqXlatingFIRDecimator(taps, 8, 250e3, FS,
                                           backend=backend, device=dev)
@@ -122,8 +122,44 @@ def test_channel_block_kernel_arm_equals_plain_arm(dev, n):
         for x in blocks:
             st, (y,) = blk.apply(st, pr, Stream.full(x))
             ys.append(y.data)
-        outs[backend] = torch.cat(ys)
+        outs[backend], states[backend] = torch.cat(ys), st
     assert _err(outs["kernel"], outs["plain"]) < 1e-5
+    assert _err(states["kernel"]["tail"], states["plain"]["tail"]) < 1e-6
+    assert torch.equal(states["kernel"]["phase"], states["plain"]["phase"])
+
+
+def test_cascade_checkpoint_from_the_card_resumes_on_the_cpu(dev, tmp_path):
+    """The cascade chain's state saved on the card after two blocks and a
+    retune, loaded into the chain on the CPU: its next blocks equal the
+    card's own continuation at the chain bar (1e-4 of the max)."""
+    from grbaz_tpu_torch.core import checkpoint
+    cfg = wbfm.WBFMConfig(block_size=1 << 14, audio_chain="cascade",
+                          center_freq=250e3)
+    gen = np.random.default_rng(12)
+    blocks = [_cn(gen, 1 << 14, dev) for _ in range(4)]
+    fg, _ = wbfm.build_wbfm(cfg, device=dev)
+    step = fg.compile().step
+    states, params = fg.init_states(), fg.init_params()
+    for x in blocks[:2]:
+        states, _ = step(states, params, {"iq": Stream.full(x)})
+    retune = fir.FreqXlatingFIRDecimator.freq_params(-431.7e3, FS)
+    path = str(tmp_path / "cascade.npz")
+    checkpoint.save_state(path, states)
+    fg_cpu, _ = wbfm.build_wbfm(cfg, device="cpu")
+    step_cpu = fg_cpu.compile().step
+    st_cpu, _, _ = checkpoint.load_state(path, fg_cpu.init_states())
+    pr_cpu = fg_cpu.init_params()
+    for pr, d in ((params, dev), (pr_cpu, "cpu")):
+        pr["channel"]["lo_inc"] = torch.tensor(int(retune["lo_inc"]),
+                                               device=d)
+    for x in blocks[2:]:
+        states, card = step(states, params, {"iq": Stream.full(x)})
+        st_cpu, cpu = step_cpu(st_cpu, pr_cpu, {"iq": Stream.full(x.cpu())})
+        for port in ("quad", "audio"):
+            got, ref = card[port], cpu[port]
+            c = int(ref.count)
+            assert int(got.count) == c
+            assert _err(got.data[:c], ref.data[:c]) < 1e-4, port
 
 
 @pytest.mark.parametrize("n,decim", [(1 << 20, 8), (8192 + 24, 8), (1000, 4),
@@ -477,3 +513,122 @@ def test_channel_bank_kernel_arm_equals_plain_arm(dev, n):
     for k in ("tail", "prev"):
         assert _err(states["kernel"][k], states["plain"][k]) < 1e-5, k
     assert torch.equal(states["kernel"]["phase"], states["plain"]["phase"])
+
+
+# ---------------------------------------------------------------------------
+# the lockout / look-ahead peak FSM (csrc/peak_fsm.cu)
+# ---------------------------------------------------------------------------
+
+FSM_CASES = [dict(min_diff=0.5, lockout=64),
+             dict(min_diff=0.3, min_len=2, lockout=10, drop=0.1),
+             dict(min_diff=0.3, lockout=5, look_ahead=4, alpha=0.3),
+             dict(min_diff=1.0, look_ahead=3)]
+
+
+@pytest.mark.parametrize("kw", FSM_CASES)
+@pytest.mark.parametrize("rows,n", [(1, 5000), (3, 4096), (64, 1 << 14),
+                                    (2, 12345)])
+def test_peak_fsm_kernel_matches_plain(dev, kw, rows, n):
+    """Marks, idx_diff and every state field bit for bit over two chained
+    calls: rows of independent streams, chunks of the staging loop whole
+    and ragged, peaks of the first call landing on sample 0."""
+    from grbaz_tpu_torch.ops.cuda import peak_fsm as pf
+    from grbaz_tpu_torch.ops.detect import PeakDetector
+    gen = np.random.default_rng(rows * n)
+    pd = PeakDetector(**kw, device="cpu")
+    st_p = {k: v.reshape(1).expand(rows).clone()
+            for k, v in pd.init_state().items()}
+    st_k = {k: v.to(dev) for k, v in st_p.items()}
+    thr = torch.tensor([0.2])
+    for _ in range(2):
+        x = gen.random((rows, n)).astype(np.float32)
+        x[:, ::97] += 2.0
+        x[:, -3:] = np.linspace(0.5, 3.0, 3)   # a rise open at the end
+        x = torch.from_numpy(x)
+        mp, ip, st_p = pf.peak_fsm(x, st_p, thr, **pd.fsm_config())
+        mk, ik, st_k = pf.peak_fsm(x.to(dev), st_k, thr.to(dev),
+                                   **pd.fsm_config())
+        torch.cuda.synchronize()
+        assert torch.equal(mk.cpu(), mp) and torch.equal(ik.cpu(), ip)
+        for k in st_p:
+            assert torch.equal(st_k[k].cpu(), st_p[k]), k
+        assert int(mp.sum()) > 0
+
+
+def test_peak_fsm_wrapper_counts_launches_and_rejects_bad_input(dev):
+    from grbaz_tpu_torch.ops.cuda import peak_fsm as pf
+    from grbaz_tpu_torch.ops.detect import PeakDetector
+    pd = PeakDetector(lockout=3, device=dev)
+    st = {k: v.reshape(1) for k, v in pd.init_state().items()}
+    thr = pd.init_params()["threshold"].reshape(1)
+    x = torch.zeros(1, 100, device=dev)
+    before = pf.peak_fsm.launches
+    pf.peak_fsm(x, st, thr, **pd.fsm_config())
+    assert pf.peak_fsm.launches == before + 1
+    with pytest.raises(TypeError):
+        pf.peak_fsm(x.double(), st, thr, **pd.fsm_config())
+    with pytest.raises(ValueError):
+        pf.peak_fsm_kernel(x, st, thr.cpu(), **pd.fsm_config())
+    with pytest.raises(ValueError):
+        pf.peak_fsm_kernel(x[:, :0], st, thr, **pd.fsm_config())
+    assert pf.peak_fsm.launches == before + 1
+
+
+@pytest.mark.parametrize("retrig", [True, False])
+def test_burst_blocks_on_the_card_equal_the_cpu(dev, retrig):
+    """Gate, RadarDetector, BurstBuffer and the lockout PeakDetector over
+    three chained blocks on the card: outputs and states equal to the same
+    blocks on the CPU (event rows as bit patterns, radar sums within
+    1e-5 relative)."""
+    from grbaz_tpu_torch.core.stream import StreamMeta
+    from grbaz_tpu_torch.ops import burst, detect
+    gen = np.random.default_rng(3)
+    n = 4096
+    x = (0.05 * _cn(gen, 3 * n, "cpu"))
+    for p in range(300, 3 * n, 1500):
+        x[p:p + 24] += 1.5
+    power = (x.real * x.real + x.imag * x.imag).contiguous()
+    marks = (power > 0.5).to(torch.uint8)
+
+    def run(d):
+        blocks = [
+            (burst.Gate(0.5, 32, retriggerable=retrig, device=d), (x, power)),
+            (detect.RadarDetector(0.1, 10.0, device=d), (power,)),
+            (burst.BurstBuffer(64, device=d),
+             (x, marks, torch.roll(marks, 40))),
+            (detect.PeakDetector(min_diff=0.5, lockout=64, device=d),
+             (power,))]
+        res = []
+        for blk, ins in blocks:
+            st, pr = blk.init_state(), blk.init_params()
+            meta = StreamMeta.start(FS, abs_index=2 ** 32 - n, device=d)
+            outs = []
+            for b in range(3):
+                s = [Stream.full(a[b * n:(b + 1) * n].to(d), meta=meta)
+                     for a in ins]
+                st, o = blk.apply(st, pr, *s)
+                outs.append([(y.data.cpu(), int(y.count)) for y in o])
+                meta = meta.advanced(n)
+            res.append((outs, {k: v.cpu() for k, v in st.items()}))
+        return res
+
+    for (go, gs), (co, cs) in zip(run(dev), run("cpu")):
+        for g, c in zip(go, co):
+            for (gd, gc), (cd, cc) in zip(g, c):
+                assert gc == cc
+                if gd.dtype == torch.float32 and gd.dim() == 2 \
+                        and gd.shape[1] == 4 and gd.shape[0] == 256:
+                    assert torch.equal(gd[:, :3].view(torch.int32),
+                                       cd[:, :3].view(torch.int32))
+                    assert torch.allclose(gd[:, 3], cd[:, 3], rtol=1e-5,
+                                          atol=0)
+                elif gd.dtype == torch.float32:
+                    assert torch.equal(gd.view(torch.int32),
+                                       cd.view(torch.int32))
+                else:
+                    assert torch.equal(gd, cd)
+        for k in cs:
+            if k == "bsum":
+                assert torch.allclose(gs[k], cs[k], rtol=1e-5)
+            else:
+                assert torch.equal(gs[k], cs[k]), k

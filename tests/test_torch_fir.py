@@ -81,11 +81,20 @@ def _stream_case(rng, retune=True):
 @pytest.mark.parametrize("retune", [False, True])
 def test_kernel_arm_plain_twin_matches_jax_xal_interpret(rng, retune):
     """Port x-aligned arm (CPU -> plain twin of the CUDA kernel) == JAX
-    xlating_fir_block_pallas_xal in interpret mode."""
+    xlating_fir_block_pallas_xal in interpret mode. The port's kernel arm
+    carries the rotated tail of the JAX XLA arm, so across a retune its
+    outputs follow that arm (the JAX Pallas arm carries an unrotated tail
+    and differs from it for ~13 outputs after the retune)."""
     blocks, counts, params = _stream_case(rng, retune)
-    jblk = jfir.FreqXlatingFIRDecimator(_taps(), DECIM, 250e3, FS,
-                                        backend="pallas_xal", interpret=True,
-                                        precision="highest")
+    if retune:
+        jblk = jfir.FreqXlatingFIRDecimator(_taps(), DECIM, 250e3, FS,
+                                            backend="xla",
+                                            precision="highest")
+    else:
+        jblk = jfir.FreqXlatingFIRDecimator(_taps(), DECIM, 250e3, FS,
+                                            backend="pallas_xal",
+                                            interpret=True,
+                                            precision="highest")
     tblk = tfir.FreqXlatingFIRDecimator(_taps(), DECIM, 250e3, FS,
                                         backend="kernel", device=CPU)
     ref, rc = run_jax(jblk, blocks, counts, params)
@@ -258,6 +267,46 @@ def test_state_from_jax_continues_stream(rng):
     _, (got,) = tblk.apply(tst, tblk.init_params(),
                            TStream.full(torch.from_numpy(x1)))
     _close(got.data.numpy(), np.asarray(ref.data))
+
+
+@pytest.mark.parametrize("first,then", [("kernel", "plain"),
+                                        ("plain", "kernel")])
+def test_channel_state_moves_between_arms_across_a_retune(rng, first, then,
+                                                          tmp_path):
+    """Two blocks on one arm, a checkpoint, then a retune and two blocks on
+    the other arm (the kernel arm through its plain twin here): the
+    outputs equal one uninterrupted run, and both arms carry the rotated
+    tail."""
+    from grbaz_tpu_torch.core import checkpoint as tckpt
+    blocks = [_cnoise(rng, 4096) for _ in range(4)]
+    p0 = params_from_numpy(
+        jfir.FreqXlatingFIRDecimator.freq_params(250e3, FS), CPU)
+    p1 = params_from_numpy(
+        jfir.FreqXlatingFIRDecimator.freq_params(-431.7e3, FS), CPU)
+    prs = [p0, p0, p1, p1]
+
+    def run(blk, st, xs, ps):
+        ys = []
+        for x, pr in zip(xs, ps):
+            st, (y,) = blk.apply(st, pr, TStream.full(torch.from_numpy(x)))
+            ys.append(y.data)
+        return st, ys
+
+    def block(backend):
+        return tfir.FreqXlatingFIRDecimator(_taps(), DECIM, 250e3, FS,
+                                            backend=backend, device=CPU)
+
+    a, b = block(first), block(then)
+    st, _ = run(a, a.init_state(), blocks[:2], prs[:2])
+    _, ref = run(a, st, blocks[2:], prs[2:])
+    st_b, _ = run(b, b.init_state(), blocks[:2], prs[:2])
+    _close(st_b["tail"].numpy(), st["tail"].numpy(), rel=1e-6)
+    assert torch.equal(st_b["phase"], st["phase"])
+    p = str(tmp_path / "chan.npz")
+    tckpt.save_state(p, {"c": st})
+    back, _, _ = tckpt.load_state(p, {"c": b.init_state()})
+    _, got = run(b, back["c"], blocks[2:], prs[2:])
+    _close(torch.cat(got).numpy(), torch.cat(ref).numpy())
 
 
 @pytest.mark.parametrize("n", [64, 1000, N + 3])

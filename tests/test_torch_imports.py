@@ -40,10 +40,11 @@ def test_importing_every_module_loads_no_jax():
     assert NEW_MODULES <= loaded, NEW_MODULES - loaded
 
 
-# the modules of BASELINE configs 1, 3, 4 and 5
+# the modules of BASELINE configs 1, 3, 4 and 5, and of the burst path
 NEW_MODULES = {f"grbaz_tpu_torch.{m}" for m in (
     "ops.agc", "ops.spectral", "ops.colour", "ops.segments", "ops.detect",
-    "ops.doa", "models.spectral", "parallel.channel_bank")}
+    "ops.doa", "models.spectral", "parallel.channel_bank", "ops.burst",
+    "ops.mux", "ops.hopper", "ops.cuda.peak_fsm")}
 
 
 @pytest.mark.parametrize("path", _port_sources(),
