@@ -59,9 +59,11 @@ The FSM kernel's cases run at the burst path's [1, 2^20] (its row) and
 at the decoder-bank shape [64, 2^14], the latter also with a smoothed
 average and a look-ahead; each is held to its plain version over two
 chained calls (marks, idx_diff and the carried state equal) on pulses
-that fall inside lockouts, with a lockout that crosses the calls, and
-its bound is the larger of its bytes and its serial chain:
-n steps of ``FSM_CHAIN_CYCLES`` at the card's maximum SM clock.
+that fall inside lockouts, with a lockout that crosses the calls. A
+fourth case forces a miss in every chunk of the speculative walk
+(sawtooth ramps that span many chunks, a lockout longer than the
+warm-up): the kernel's worst case, held to the same checks. Each case
+prints the chunks the kernel walked again; its bound is its bytes.
 
 B3's row counts the launches of both its entry points and times the
 block entry point, which the cascade chain's ``FIRDecimator`` launches;
@@ -158,6 +160,9 @@ MAIN_PATH_KERNELS = ("xlating_fir_block", "fir_decimate_frame")
 FUSED_PATH_KERNELS = ("xlating_fir_ctaps_block",)
 BANK_PATH_KERNELS = ("xlating_fir_bank",)
 BURST_PATH_KERNELS = ("peak_fsm",)
+# the device functions of the FSM kernel's three passes, as the profiler
+# names them
+FSM_PASSES = ("speculate_kernel", "chain_kernel", "apply_kernel")
 PUMP_BLOCKS = 16
 # BASELINE config 5 (benchmarks.py: bench_bank): 16 slots over 2^17-sample
 # blocks, channels at linspace(-1.2 MHz, 1.2 MHz, 16), an FM station on
@@ -184,14 +189,14 @@ FSM_SMOOTHED = dict(min_diff=0.5, lockout=64, alpha=0.3, drop=0.2,
 # first's 64-sample lockout (its emission comes after the first's
 # peak) and after the retriggerable gate's 55 open samples
 LOCKED_GAP = 60
-# the FSM kernel's dependent chain per sample, in cycles: the loop-carried
-# path of csrc/peak_fsm.cu's walk in its SASS (cuobjdump -sass of the
-# built library) runs from the lockout count through five dependent
-# instructions back to it (ISETP unlocked & update, FSEL peak, FADD peak -
-# first, FSETP qualifies, SEL the new count), at 4 cycles each, the
-# Hopper ALU pipes' latency from one instruction to a dependent one; see
-# PERF.md
-FSM_CHAIN_CYCLES = 20
+# the forced-miss FSM case: sawtooth ramps of FSM_TOOTH samples (many
+# chunks each), a drop FSM_TOOTH_AT samples before each block's end, a
+# two-sample bump inside the lockout after each drop, and a lockout longer
+# than the kernel's warm-up and chunk: every guess inside a ramp has the
+# wrong start of the rise, every guess inside a lockout the wrong count
+FSM_TOOTH = 4096
+FSM_TOOTH_AT = 100
+FSM_RAMP = dict(min_diff=0.5, lockout=4 * pf.WARM)
 
 
 def reset_launches() -> None:
@@ -281,16 +286,11 @@ def copies(make, nbytes: int):
     return [make() for _ in range(max(1, -(-160_000_000 // nbytes)))]
 
 
-def bound_ms(nbytes: int, flops: int, serial_steps: int = 0,
-             sm_clock_mhz: float = 0.0):
+def bound_ms(nbytes: int, flops: int):
     """The larger of bytes over the memory rate and operations over the
-    f32 peak; for a serial FSM (``serial_steps`` > 0) the operations are
-    its dependent chain, ``serial_steps * FSM_CHAIN_CYCLES`` cycles at
-    the maximum SM clock."""
+    f32 peak."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_F32 * 1e3
-    if serial_steps:
-        t_ops = serial_steps * FSM_CHAIN_CYCLES / (sm_clock_mhz * 1e6) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -304,11 +304,6 @@ def report():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
-    clock = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0])
-    print(f"maximum SM clock: {clock:.0f} MHz")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -320,7 +315,7 @@ def report():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    return smi, clock
+    return smi
 
 
 def kernel_cases(dev):
@@ -414,6 +409,8 @@ def kernel_cases(dev):
         fsm_case(dev, 4, 64, 1 << 14, "decoder bank"),
         fsm_case(dev, 5, 64, 1 << 14, "decoder bank, smoothed, look-ahead",
                  FSM_SMOOTHED),
+        fsm_case(dev, 6, 1, BLOCK, "forced miss", FSM_RAMP, ramp_block,
+                 all_miss=True),
     ]
 
 
@@ -438,43 +435,72 @@ def fsm_block(rng, rows, n):
     return x.astype(np.float32)
 
 
-def fsm_case(dev, seed, rows, n, shape, config=FSM_CONFIG):
+def ramp_block(rng, rows, n):
+    """[rows, n] sawtooth ramps for the forced-miss case: teeth of
+    FSM_TOOTH samples rising from 0 to 1, the last drop FSM_TOOTH_AT
+    samples before the end, a bump (0.1, 1.0) 5 samples after each drop."""
+    x = np.tile((np.arange(n) + FSM_TOOTH_AT) % FSM_TOOTH / FSM_TOOTH,
+                (rows, 1))
+    for d in range((-FSM_TOOTH_AT) % FSM_TOOTH, n - 6, FSM_TOOTH):
+        x[:, d + 5:d + 7] = (0.1, 1.0)
+    return x.astype(np.float32)
+
+
+def fsm_case(dev, seed, rows, n, shape, config=FSM_CONFIG, block=fsm_block,
+             all_miss=False):
     """The FSM kernel of ``PeakDetector(**config)`` on ``rows`` power
-    streams of ``n`` samples (:func:`fsm_block`), chained from the stream
-    start: the kernel and plain functions each walk one block; the check
-    walks two chained blocks with both and holds marks, idx_diff and the
-    carried state equal. It also checks that the data exercise the
-    config: the lockout crosses the blocks in every row, and with the
-    lockout (and look-ahead, where set) at 0 the kernel marks otherwise.
-    Its bytes: the input and both outputs once, the state in and out."""
+    streams of ``n`` samples (``block``, :func:`fsm_block` by default),
+    chained from the stream start: the kernel and plain functions each
+    walk one block; the check walks two chained blocks with both and
+    holds marks, idx_diff and the carried state equal, and prints the
+    chunks the kernel walked again in each. It also checks that the data
+    exercise the config: the lockout crosses the blocks in every row, and
+    with the lockout (and look-ahead, where set) at 0 the kernel marks
+    otherwise; with ``all_miss``, that every chunk but each row's first
+    was walked again. Its bytes: the input and both outputs once, the
+    state in and out."""
     cfg = PeakDetector(**config, device="cpu").fsm_config()
     rng = np.random.default_rng(seed)
-    xs = [torch.from_numpy(fsm_block(rng, rows, n)).to(dev) for _ in range(2)]
+    xs = [torch.from_numpy(block(rng, rows, n)).to(dev) for _ in range(2)]
+    chunks = rows * -(-n // pf.CHUNK)
     st0 = {k: v.reshape(1).expand(rows).contiguous()
            for k, v in PeakDetector(device=dev).init_state().items()}
     thr = torch.full((1,), float("-inf"), device=dev)
     label = f"peak_fsm [{shape}]"
 
     def chain(fn, **over):
-        st, out = st0, []
+        st, out, repairs = st0, [], []
         for x in xs:
             m, i, st = fn(x, st, thr, **dict(cfg, **over))
             out.append((m, i, st))
-        return out
+            repairs.append(pf.peak_fsm.last_repairs)
+        return out, repairs
+
+    def repaired():
+        return (f"repaired {int(pf.peak_fsm.last_repairs.sum())} of "
+                f"{chunks} chunks (chunk {pf.CHUNK}, warm {pf.WARM})")
 
     def held():
-        kern, plain = chain(pf.peak_fsm), chain(pf.peak_fsm_plain)
+        (kern, repairs), (plain, _) = (chain(pf.peak_fsm),
+                                       chain(pf.peak_fsm_plain))
         torch.cuda.synchronize()
+        print(f"{label}: repaired "
+              + " and ".join(str(int(r.sum())) for r in repairs)
+              + f" of {chunks} chunks in the two calls (chunk {pf.CHUNK}, "
+              f"warm {pf.WARM})")
         for (mk, ik, st_k), (mp, ip, st_p) in zip(kern, plain):
             same = torch.equal(mk, mp) and torch.equal(ik, ip) and all(
                 torch.equal(st_k[k], st_p[k]) for k in st_p)
             check(same, f"{label} differs from its plain version")
             check(int(mk.sum()) > 0, f"{label} marked nothing")
+        if all_miss:
+            check(all(int(r.sum()) == chunks - rows for r in repairs),
+                  f"{label}: a guess hit")
         check(bool((kern[0][2]["lockout_count"] > 0).all()),
               f"{label}: the lockout does not cross the blocks")
         for knob in ("lockout", "look_ahead"):
             if cfg[knob]:
-                off = chain(pf.peak_fsm, **{knob: 0})
+                off, _ = chain(pf.peak_fsm, **{knob: 0})
                 check(any(not torch.equal(a[0], b[0])
                           for a, b in zip(kern, off)),
                       f"{label}: the data do not exercise {knob}")
@@ -486,7 +512,7 @@ def fsm_case(dev, seed, rows, n, shape, config=FSM_CONFIG):
                                                   **cfg)[0],
                 check=held, iters=10, plain_iters=1, library=None,
                 nbytes=12 * rows * n + 2 * 40 * rows + 4, flops=0,
-                serial_steps=n)
+                after=repaired)
 
 
 def bank_case(dev, gen, h_chan):
@@ -897,15 +923,15 @@ def graph_timer(fg, xs, rate, params=None, ports=None, bits_ports=()):
 
 
 def time_path(label, fg, xs, rate, per_step, unit, scale=1e6, params=None,
-              steps=10, bits_ports=()):
+              steps=10, bits_ports=(), kernels=()):
     """Median CUDA-event step time over 3 rounds, the rate (``per_step``
     items a step, in units of ``scale`` a second), and the profiled kernel
-    time and idle share."""
+    time and idle share (and that of the named ``kernels``)."""
     run = graph_timer(fg, xs, rate, params, bits_ports=bits_ports)
     ms = statistics.median(run(steps) for _ in range(3))
     print(f"path {label}: step {ms:.4f} ms (events, median of 3 rounds of "
           f"{steps}) = {per_step / (ms / 1e3) / scale:.2f} {unit}")
-    profile_chain(run, ms, label)
+    profile_chain(run, ms, label, kernels)
     return ms
 
 
@@ -1418,15 +1444,17 @@ def burst_path(dev):
           + "; within bars: " + ", ".join(f"{p} {e:.2e}" for p, e in
                                           worst.items() if e))
     time_path("burst", burst_graph(dev, syncs), xs, FS, BLOCK, "Msamp/s",
-              bits_ports=BURST_EVENT_PORTS)
+              bits_ports=BURST_EVENT_PORTS, kernels=FSM_PASSES)
     return launches
 
 
-def profile_chain(run, step_ms: float, label: str):
+def profile_chain(run, step_ms: float, label: str, kernels=()):
     """Kernel time per step and by name, from torch.profiler over 5
     steps. The busy share is that kernel time over ``step_ms``, the
     CUDA-event step time of unprofiled runs: the profiler adds host time
-    to every op, so the profiled step would understate the share."""
+    to every op, so the profiled step would understate the share. The
+    device kernels whose names hold one of ``kernels`` are summed on a
+    line of their own."""
     os.makedirs(OUT_DIR, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1449,6 +1477,14 @@ def profile_chain(run, step_ms: float, label: str):
           f"{100 * (1 - busy):.1f}% of the unprofiled step")
     for row in table.splitlines()[:12]:
         print("  " + row)
+    if kernels:
+        mine = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.key for k in kernels)]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3 / steps
+        print(f"profile {label}: {' + '.join(kernels)} {ms:.4f} ms per step "
+              f"({sum(e.count for e in mine) / steps:.0f} launches), "
+              f"{100 * ms / step_ms:.1f}% of the unprofiled step")
 
 
 def chain_timing(dev, iq, cfg, label, rounds=6, steps=20):
@@ -1495,7 +1531,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi, sm_clock = report()
+    smi = report()
 
     cases = kernel_cases(dev)
     check_kernels(cases)
@@ -1514,13 +1550,13 @@ def main() -> int:
         ms = time_ms(c["kernel"], c.get("iters", 200))
         plain_ms = time_ms(c["plain"], c.get("plain_iters", 20))
         lib_ms = time_ms(c["library"], 200) if c["library"] else None
-        b_ms, b_by = bound_ms(c["nbytes"], c["flops"],
-                              c.get("serial_steps", 0), sm_clock)
+        b_ms, b_by = bound_ms(c["nbytes"], c["flops"])
         label = c["name"] + (f" [{c['shape']}]" if "shape" in c else "")
         print(f"time {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"bound {b_ms:.4f} ms ({b_by}), "
-              f"{c['nbytes'] / ms / 1e6:.1f} GB/s")
+              f"{c['nbytes'] / ms / 1e6:.1f} GB/s"
+              + (f"; {c['after']()}" if "after" in c else ""))
         rows.append(dict(c, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by))
     chain_timing(dev, iq, cfg, "chain")

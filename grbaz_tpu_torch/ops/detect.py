@@ -227,6 +227,15 @@ class PeakDetector(Block):
 FSM_F32 = ("ave", "prev", "first", "peak")
 FSM_I32 = ("rise_count", "peak_age", "lockout_count", "last_peak_global",
            "global_idx")
+# the fields one step reads and writes, in fsm_step's order
+FSM_FIELDS = ("ave", "prev", "first", "peak", "rising", "rise_count",
+              "peak_age", "lockout_count")
+
+
+def fsm_state_list(st: dict, r: int) -> list:
+    """Row ``r`` of the numpy state ``st`` as :func:`fsm_step`'s list."""
+    return [np.float32(st[k][r]) for k in FSM_FIELDS[:4]] + [
+        bool(st["rising"][r])] + [int(st[k][r]) for k in FSM_FIELDS[5:]]
 
 
 def fsm_constants(min_diff, drop, alpha):
@@ -260,6 +269,43 @@ def _i32(v: int) -> int:
     return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
 
 
+def fsm_step(s: list, xi, t, gidx: int, k: tuple):
+    """One step of the lockout / look-ahead FSM, in place on the state
+    list ``s`` = [ave, prev, first, peak, rising, rise_count, peak_age,
+    lockout_count] (numpy float32 and Python bool / int), for the sample
+    ``xi`` at global index ``gidx`` with threshold ``t``; ``k`` is
+    :func:`fsm_constants` followed by (min_len, lockout, look_ahead).
+    Returns the emitted peak's global position, or None."""
+    a, b, keep, md, min_len, lockout, look_ahead = k
+    ave, prev, first, peak, rising, rc, pa, lc = s
+    ave = _fma32(a, prev, b * ave)
+    in_lock = lc > 0
+    cond = bool(xi >= t) and bool(xi > ave * keep)
+    rising_n, first_n, peak_n, pa_n, rc_n = rising, first, peak, pa, rc
+    if not in_lock:
+        start = cond and not rising
+        rising_n = cond
+        if start:
+            first_n = xi
+        if start or (cond and rising and xi > peak):
+            peak_n, pa_n = xi, 0
+        else:
+            pa_n = _i32(pa + 1)
+        rc_n = 1 if start else (_i32(rc + 1) if cond else rc)
+    ended = rising and (not cond or (look_ahead > 0 and pa_n >= look_ahead))
+    pos = None
+    if (ended and not in_lock and rc_n >= min_len
+            and peak_n - first_n >= md):
+        pos = _i32(gidx - pa_n)
+        lc = lockout
+    else:
+        lc = max(lc - 1, 0)
+    rising = False if (ended and not in_lock) else rising_n
+    rc = 0 if ended else rc_n
+    s[:] = ave, xi, first_n, peak_n, rising, rc, pa_n, lc
+    return pos
+
+
 def peak_fsm_plain(x: torch.Tensor, state: dict, threshold: torch.Tensor, *,
                    min_diff: float, min_len: int, lockout: int, drop: float,
                    alpha: float, look_ahead: int):
@@ -270,17 +316,18 @@ def peak_fsm_plain(x: torch.Tensor, state: dict, threshold: torch.Tensor, *,
     device.
 
     The serial mirror of ``PeakDetector._apply_scan`` of the JAX package,
-    a per-sample loop. It runs over the rows' values on the host with
-    numpy float32 scalars: one torch op for each FSM operation would cost
-    ~150 us a sample on the CPU (~50 ops of ~3 us), minutes for one
-    2^20-sample block. The average is ``fma(alpha, prev, (1-alpha)*ave)``,
-    one rounding for the product and one for the fused multiply-add, as
-    XLA compiles the JAX scan's ``alpha*prev + (1-alpha)*ave`` on the CPU
-    (and as the kernel computes it with ``__fmul_rn`` and ``__fmaf_rn``);
-    every other product, sum and compare rounds on its own. A peak is
-    marked by adding 1 at ``clip(peak_pos - base, 0, n-1)``, so peaks of
-    earlier blocks sum at sample 0."""
-    a, b, keep, md = fsm_constants(min_diff, drop, alpha)
+    a per-sample loop of :func:`fsm_step`. It runs over the rows' values
+    on the host with numpy float32 scalars: one torch op for each FSM
+    operation would cost ~150 us a sample on the CPU (~50 ops of ~3 us),
+    minutes for one 2^20-sample block. The average is ``fma(alpha, prev,
+    (1-alpha)*ave)``, one rounding for the product and one for the fused
+    multiply-add, as XLA compiles the JAX scan's ``alpha*prev +
+    (1-alpha)*ave`` on the CPU (and as the kernel computes it with
+    ``__fmul_rn`` and ``__fmaf_rn``); every other product, sum and
+    compare rounds on its own. A peak is marked by adding 1 at
+    ``clip(peak_pos - base, 0, n-1)``, so peaks of earlier blocks sum at
+    sample 0."""
+    k = fsm_constants(min_diff, drop, alpha) + (min_len, lockout, look_ahead)
     xs = x.detach().to("cpu", torch.float32).numpy()
     rows, n = xs.shape
     thr = np.broadcast_to(threshold.detach().cpu().numpy()
@@ -290,47 +337,20 @@ def peak_fsm_plain(x: torch.Tensor, state: dict, threshold: torch.Tensor, *,
     st = {k: v.detach().cpu().numpy().reshape(rows).copy()
           for k, v in state.items()}
     for r in range(rows):
-        ave, prev, first, peak = (np.float32(st[k][r]) for k in FSM_F32)
-        rc, pa, lc, last, gidx = (int(st[k][r]) for k in FSM_I32)
-        rising, t = bool(st["rising"][r]), thr[r]
-        base = gidx
+        s = fsm_state_list(st, r)
+        last, base = int(st["last_peak_global"][r]), int(st["global_idx"][r])
         for i in range(n):
-            xi = xs[r, i]
-            ave = _fma32(a, prev, b * ave)
-            in_lock = lc > 0
-            cond = bool(xi >= t) and bool(xi > ave * keep)
-            rising_n, first_n, peak_n, pa_n, rc_n = rising, first, peak, pa, rc
-            if not in_lock:
-                start = cond and not rising
-                rising_n = cond
-                if start:
-                    first_n = xi
-                if start or (cond and rising and xi > peak):
-                    peak_n, pa_n = xi, 0
-                else:
-                    pa_n = _i32(pa + 1)
-                rc_n = 1 if start else (_i32(rc + 1) if cond else rc)
-            ended = rising and (not cond or (look_ahead > 0
-                                             and pa_n >= look_ahead))
-            if (ended and not in_lock and rc_n >= min_len
-                    and peak_n - first_n >= md):
-                pos = _i32(gidx - pa_n)
+            pos = fsm_step(s, xs[r, i], thr[r], _i32(base + i), k)
+            if pos is not None:
                 rel = min(max(_i32(pos - base), 0), n - 1)
                 marks[r, rel] += 1.0
                 if last >= 0:
                     idx_out[r, rel] = _i32(int(idx_out[r, rel]) + pos - last)
-                lc, last = lockout, pos
-            else:
-                lc = max(lc - 1, 0)
-            rising = False if (ended and not in_lock) else rising_n
-            rc = 0 if ended else rc_n
-            first, peak, pa, prev = first_n, peak_n, pa_n, xi
-            gidx = _i32(gidx + 1)
-        for k, v in zip(FSM_F32, (ave, prev, first, peak)):
-            st[k][r] = v
-        for k, v in zip(FSM_I32, (rc, pa, lc, last, gidx)):
-            st[k][r] = v
-        st["rising"][r] = rising
+                last = pos
+        for name, v in zip(FSM_FIELDS, s):
+            st[name][r] = v
+        st["last_peak_global"][r] = last
+        st["global_idx"][r] = _i32(base + n)
     dev = x.device
     return (torch.from_numpy(marks).to(dev), torch.from_numpy(idx_out).to(dev),
             {k: torch.from_numpy(v).to(dev) for k, v in st.items()})

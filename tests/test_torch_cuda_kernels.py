@@ -525,13 +525,19 @@ FSM_CASES = [dict(min_diff=0.5, lockout=64),
              dict(min_diff=1.0, look_ahead=3)]
 
 
+# (chunk, warm) of the speculative walk: the defaults, no warm-up at the
+# smallest chunk (most guesses miss), odd sizes, a warm-up past a chunk
+FSM_CHUNKS = [(256, 128), (8, 0), (37, 5), (1024, 300)]
+
+
+@pytest.mark.parametrize("chunk,warm", FSM_CHUNKS)
 @pytest.mark.parametrize("kw", FSM_CASES)
 @pytest.mark.parametrize("rows,n", [(1, 5000), (3, 4096), (64, 1 << 14),
                                     (2, 12345)])
-def test_peak_fsm_kernel_matches_plain(dev, kw, rows, n):
+def test_peak_fsm_kernel_matches_plain(dev, kw, rows, n, chunk, warm):
     """Marks, idx_diff and every state field bit for bit over two chained
-    calls: rows of independent streams, chunks of the staging loop whole
-    and ragged, peaks of the first call landing on sample 0."""
+    calls: rows of independent streams, chunks whole and ragged, peaks of
+    the first call landing on sample 0, whatever the chunk and warm-up."""
     from grbaz_tpu_torch.ops.cuda import peak_fsm as pf
     from grbaz_tpu_torch.ops.detect import PeakDetector
     gen = np.random.default_rng(rows * n)
@@ -547,12 +553,59 @@ def test_peak_fsm_kernel_matches_plain(dev, kw, rows, n):
         x = torch.from_numpy(x)
         mp, ip, st_p = pf.peak_fsm(x, st_p, thr, **pd.fsm_config())
         mk, ik, st_k = pf.peak_fsm(x.to(dev), st_k, thr.to(dev),
-                                   **pd.fsm_config())
+                                   **pd.fsm_config(), chunk=chunk, warm=warm)
         torch.cuda.synchronize()
         assert torch.equal(mk.cpu(), mp) and torch.equal(ik.cpu(), ip)
         for k in st_p:
             assert torch.equal(st_k[k].cpu(), st_p[k]), k
         assert int(mp.sum()) > 0
+
+
+@pytest.mark.parametrize("scene", ["ramp", "pulses"])
+@pytest.mark.parametrize("chunk,warm", [(8, 0), (32, 32), (256, 128)])
+def test_peak_fsm_kernel_repairs(dev, scene, chunk, warm):
+    """The chunks walked again: every chunk but a row's first on a
+    monotone ramp (each guess has the wrong start of the rise), none on
+    pulses far apart above a threshold the noise stays under, once the
+    warm-up covers the lockout; as many as the numpy model of the scheme
+    (tests/test_torch_fsm_speculation.py) repairs, and the outputs bit for
+    bit the plain version's over two chained calls."""
+    from grbaz_tpu_torch.ops.cuda import peak_fsm as pf
+    from grbaz_tpu_torch.ops.detect import PeakDetector
+    from test_torch_fsm_speculation import _pulses, speculative_fsm
+    gen = np.random.default_rng(chunk + warm)
+    rows, n = 2, 4096
+    if scene == "ramp":
+        x = np.tile(np.linspace(0.01, 5.0, 2 * n, dtype=np.float32),
+                    (rows, 1))
+        thr = 0.0
+    else:
+        x = _pulses(gen, rows, 2 * n, 150, width=(2, 4))
+        thr = 0.1
+    cfg = PeakDetector(min_diff=0.3, lockout=24, device="cpu").fsm_config()
+    st_p = {k: v.reshape(1).expand(rows).clone()
+            for k, v in PeakDetector(device="cpu").init_state().items()}
+    st_k = {k: v.to(dev) for k, v in st_p.items()}
+    t = torch.full((rows,), thr)
+    k = -(-n // chunk)
+    for b in range(2):
+        xb = torch.from_numpy(np.ascontiguousarray(x[:, b * n:(b + 1) * n]))
+        *_, rep_m = speculative_fsm(
+            xb.numpy(), {q: v.numpy() for q, v in st_p.items()}, t.numpy(),
+            cfg, chunk, warm)
+        mp, ip, st_p = pf.peak_fsm(xb, st_p, t, **cfg)
+        mk, ik, st_k = pf.peak_fsm(xb.to(dev), st_k, t.to(dev), **cfg,
+                                   chunk=chunk, warm=warm)
+        rep_k = pf.peak_fsm.last_repairs.cpu().numpy()
+        assert torch.equal(mk.cpu(), mp) and torch.equal(ik.cpu(), ip)
+        for q in st_p:
+            assert torch.equal(st_k[q].cpu(), st_p[q]), q
+        assert list(rep_k) == list(rep_m)
+        if scene == "ramp":
+            assert list(rep_k) == [k - 1] * rows
+        elif warm >= cfg["lockout"]:
+            assert list(rep_k) == [0] * rows
+            assert int(mp.sum()) > 0
 
 
 def test_peak_fsm_wrapper_counts_launches_and_rejects_bad_input(dev):
@@ -571,6 +624,10 @@ def test_peak_fsm_wrapper_counts_launches_and_rejects_bad_input(dev):
         pf.peak_fsm_kernel(x, st, thr.cpu(), **pd.fsm_config())
     with pytest.raises(ValueError):
         pf.peak_fsm_kernel(x[:, :0], st, thr, **pd.fsm_config())
+    with pytest.raises(ValueError):
+        pf.peak_fsm_kernel(x, st, thr, **pd.fsm_config(), chunk=1)
+    with pytest.raises(ValueError):
+        pf.peak_fsm_kernel(x, st, thr, **pd.fsm_config(), chunk=4096)
     assert pf.peak_fsm.launches == before + 1
 
 
