@@ -39,10 +39,10 @@ failure of which exits non-zero:
    ``PeakDetector(min_diff=0.1)`` marking planted peaks), config 4
    (``MusicDOA(8, 1, 512)`` over 256 frames, planted angles found within
    1 degree) and config 5 (the 16-slot ``DynamicChannelBank`` at 2^17
-   blocks on the slot-batched channelizer, once per step, against its
-   plain backend, with an add, a removal and a retune mid-run, and an FM
-   tone that comes back on its slot), then timed and profiled like the
-   chains;
+   blocks on the bank's kernel ``csrc/channel_bank.cu``, one launch a
+   step and no LO computed on the host, against its plain backend, with
+   an add, a removal and a retune mid-run, and an FM tone that comes back
+   on its slot), then timed and profiled like the chains;
 9. the burst path (``burst_path``): TimeKeeper, Gate (retriggerable and
    not), RadarDetector, BurstTagger -> BurstBuffer, Burster -> Merge,
    two Correlators (127-tap FFT and 63-tap direct) and the lockout
@@ -102,6 +102,7 @@ from grbaz_tpu_torch.ops.burst import (BurstBuffer, Burster, BursterConfig,
 from grbaz_tpu_torch.ops.colour import Colouriser
 from grbaz_tpu_torch.ops.detect import Correlator, PeakDetector, RadarDetector
 from grbaz_tpu_torch.ops.cuda import build
+from grbaz_tpu_torch.ops.cuda import channel_bank as cb
 from grbaz_tpu_torch.ops.cuda import fir_decimate as fd
 from grbaz_tpu_torch.ops.cuda import peak_fsm as pf
 from grbaz_tpu_torch.ops.cuda import tiling
@@ -143,10 +144,11 @@ KERNELS = {  # row -> (wrappers whose launches it counts, source, TPU kernel)
         (xc.xlating_fir_ctaps_block,),
         "grbaz_tpu_torch/csrc/xlating_fir_ctaps.cu",
         "grbaz_tpu/ops/pallas/wbfm_frontend.py:218"),
-    # B1's slot-batched entry point, the channel bank's channelizer
-    "xlating_fir_bank": (
-        (xf.xlating_fir_bank,), "grbaz_tpu_torch/csrc/xlating_fir.cu",
-        "grbaz_tpu/ops/pallas/wbfm_frontend.py:621"),
+    # the channel bank's channelizer: the JAX bank's per-slot rotate,
+    # filter and decimate (XLA there; B1's math), every slot in one launch
+    "channel_bank": (
+        (cb.channel_bank,), "grbaz_tpu_torch/csrc/channel_bank.cu",
+        "grbaz_tpu/parallel/channel_bank.py:107"),
     # the lockout / look-ahead PeakDetector's serial FSM (the JAX package's
     # per-sample lax.scan, not a Pallas kernel)
     "peak_fsm": (
@@ -158,7 +160,7 @@ KERNELS = {  # row -> (wrappers whose launches it counts, source, TPU kernel)
 # package calls only from its tests
 MAIN_PATH_KERNELS = ("xlating_fir_block", "fir_decimate_frame")
 FUSED_PATH_KERNELS = ("xlating_fir_ctaps_block",)
-BANK_PATH_KERNELS = ("xlating_fir_bank",)
+BANK_PATH_KERNELS = ("channel_bank",)
 BURST_PATH_KERNELS = ("peak_fsm",)
 # the device functions of the FSM kernel's three passes, as the profiler
 # names them
@@ -516,30 +518,94 @@ def fsm_case(dev, seed, rows, n, shape, config=FSM_CONFIG, block=fsm_block,
 
 
 def bank_case(dev, gen, h_chan):
-    """B1's slot-batched entry point at the channel bank's shape (16
-    slots, 2^17 samples in). Its work is B1's function per slot, as
-    B1's row counts it: rotate the block (6 FLOP a sample), then a
-    real-tap FIR (4 FLOP a tap an output); not the 8 FLOP a tap of the
-    factored form the kernel happens to compute. Its bytes: the shared
-    block once, each slot's history, phase and increment, and the
-    outputs. No one library call rotates and filters per slot."""
+    """The bank's kernel at the channel bank's shape (16 slots, 2^17
+    samples in). The check chains two blocks through the kernel and the
+    plain version, the second call on the first's new tail, once with the
+    same increments and once with half the slots retuned (their tails
+    then rotated under the old increments), and holds y and the new tail
+    of every call within 1e-5 of the plain version's max; then a
+    narrow-band plan the same way (4 slots, 1544 taps, which the kernel
+    takes in several slabs of taps), retuned. Its work is
+    B1's function per slot, as B1's row counts it: rotate the block (6
+    FLOP a sample), then a real-tap FIR (4 FLOP a tap an output); not
+    the 3xTF32 product the kernel happens to compute. Its bytes: the
+    shared block once, each slot's tail in and out, phase and increment,
+    and the outputs. The library yardstick is the real-form filter of
+    every slot, ``torch.matmul`` of the overlapping-row view of the block
+    with the packed rotated taps (fp32 cuBLAS, TF32 off), without the
+    head outputs, the output rotation and the tail."""
     tpad, c = h_chan.shape[0], BANK_SLOTS
-    n_out = BANK_BLOCK // DECIM
+    hist, n_out = tpad - 1, BANK_BLOCK // DECIM
     xs = copies(lambda: torch.view_as_complex(torch.randn(
         BANK_BLOCK, 2, generator=gen, device=dev)), 8 * BANK_BLOCK)
-    hist = torch.view_as_complex(torch.randn(c, tpad - 1, 2, generator=gen,
+    tail = torch.view_as_complex(torch.randn(c, hist, 2, generator=gen,
                                              device=dev)).contiguous()
     ph = torch.randint(0, 2 ** 32, (c,), generator=gen, device=dev)
     inc = torch.tensor([int(exact.freq_to_turns_u32(-f, FS))
                         for f in BANK_FREQS], device=dev)
-    return dict(name="xlating_fir_bank", shape=f"{c} slots",
-                kernel=lambda i: xf.xlating_fir_bank(
-                    xs[i % len(xs)], hist, h_chan, DECIM, ph, inc),
-                plain=lambda i: xf.xlating_fir_bank_plain(
-                    xs[i % len(xs)], hist, h_chan, DECIM, ph, inc),
-                library=None,
-                geometry=tiling.for_tensor(xs[0], c * n_out, tpad, DECIM, 8),
-                nbytes=8 * BANK_BLOCK + 8 * c * (tpad - 1) + 4 * tpad
+    # half the slots retuned onto their neighbour's channel
+    retuned = torch.where(torch.arange(c, device=dev) % 2 == 0,
+                          inc.roll(1), inc)
+    label = f"channel_bank [{c} slots]"
+
+    def chain(fn, inc2):
+        y0, t0 = fn(xs[0], tail, h_chan, DECIM, ph, inc)
+        y1, t1 = fn(xs[1], t0, h_chan, DECIM,
+                    (ph + BANK_BLOCK * inc) & 0xFFFFFFFF, inc2)
+        return (y0, t0, y1, t1)
+
+    def compare(what, got, ref):
+        torch.cuda.synchronize()
+        for part, g, r in zip(("y0", "tail0", "y1", "tail1"), got, ref):
+            err = float((g - r).abs().max())
+            bar = 1e-5 * float(r.abs().max())
+            print(f"{what} {part}: max_abs_err {err:.3e} (bar {bar:.3e})")
+            check(g.shape == r.shape and err < bar,
+                  f"{what} {part} disagrees with its plain version")
+
+    def held():
+        for what, inc2 in (("chained", inc), ("retuned", retuned)):
+            got, ref = chain(cb.channel_bank, inc2), chain(
+                cb.channel_bank_plain, inc2)
+            compare(f"{label} {what}", got, ref)
+        # a narrow-band plan (NBFM: 12.5 kHz channels, 5 kHz transition,
+        # 1544 taps) whose taps the kernel takes in several slabs
+        nb = torch.from_numpy(fir.prepare_taps(fir.low_pass_taps(
+            1.0, FS, 6.25e3 + 2.5e3, 5e3), DECIM)).to(dev)
+        nt = torch.view_as_complex(torch.randn(
+            4, nb.shape[0] - 1, 2, generator=gen, device=dev)).contiguous()
+
+        def narrow(fn):
+            y0, t0 = fn(xs[2], nt, nb, DECIM, ph[:4], inc[:4])
+            y1, t1 = fn(xs[3], t0, nb, DECIM,
+                        (ph[:4] + BANK_BLOCK * inc[:4]) & 0xFFFFFFFF,
+                        retuned[:4])
+            return (y0, t0, y1, t1)
+        compare(f"channel_bank [4 slots, {nb.shape[0]} taps] retuned",
+                narrow(cb.channel_bank), narrow(cb.channel_bank_plain))
+        return (torch.cat([g.reshape(-1) for g in got]),
+                torch.cat([r.reshape(-1) for r in ref]))
+
+    k_head = -(-hist // DECIM)
+    views = [torch.view_as_real(x).reshape(-1).as_strided(
+        (n_out - k_head, 2 * tpad), (2 * DECIM, 1),
+        2 * (k_head * DECIM - hist)) for x in xs]
+    g = h_chan * exact.lo_at(torch.zeros((), dtype=torch.int64, device=dev),
+                             inc[:, None], torch.arange(-hist, 1, device=dev))
+    b = torch.empty(tpad, 2, c, 2, device=dev)  # (tap, re/im row, slot, col)
+    b[:, 0, :, 0], b[:, 0, :, 1] = g.real.T, g.imag.T
+    b[:, 1, :, 0], b[:, 1, :, 1] = -g.imag.T, g.real.T
+    b = b.reshape(2 * tpad, 2 * c)
+    return dict(name="channel_bank", shape=f"{c} slots",
+                kernel=lambda i: cb.channel_bank(
+                    xs[i % len(xs)], tail, h_chan, DECIM, ph, inc),
+                plain=lambda i: cb.channel_bank_plain(
+                    xs[i % len(xs)], tail, h_chan, DECIM, ph, inc),
+                check=held,
+                library=lambda i: torch.matmul(views[i % len(views)], b),
+                library_label="torch.matmul of the real-form view, fp32 "
+                "cuBLAS, no head, rotation or tail",
+                nbytes=8 * BANK_BLOCK + 2 * 8 * c * hist + 4 * tpad
                 + 16 * c + 8 * c * n_out,
                 flops=c * (6 * BANK_BLOCK + 4 * tpad * n_out))
 
@@ -1178,8 +1244,18 @@ def bank_path(dev):
         x = x + torch.polar(torch.ones_like(t), ph).to(torch.complex64)
     xs = [x[b * BANK_BLOCK:(b + 1) * BANK_BLOCK] for b in range(BANK_BLOCKS)]
     fg, bank = bank_graph(dev)
-    kern, counts = counted("bank", BANK_PATH_KERNELS, BANK_BLOCKS,
-                           lambda: run_graph(fg, xs, FS, bank_control(bank)))
+    # the kernel arm takes the rotated tails as they are carried: it must
+    # compute no LO on the host (the plain arm's exact.lo_at)
+    lo_calls, lo_at = [], exact.lo_at
+    exact.lo_at = lambda *a, **k: lo_calls.append(1) or lo_at(*a, **k)
+    try:
+        kern, counts = counted("bank", BANK_PATH_KERNELS, BANK_BLOCKS,
+                               lambda: run_graph(fg, xs, FS,
+                                                 bank_control(bank)))
+    finally:
+        exact.lo_at = lo_at
+    check(not lo_calls, f"the bank's kernel arm called exact.lo_at "
+          f"{len(lo_calls)} times")
     fg, bank = bank_graph(dev, "plain")
     plain, _ = counted("bank (plain backend)", (), BANK_BLOCKS,
                        lambda: run_graph(fg, xs, FS, bank_control(bank)))
@@ -1553,7 +1629,9 @@ def main() -> int:
         b_ms, b_by = bound_ms(c["nbytes"], c["flops"])
         label = c["name"] + (f" [{c['shape']}]" if "shape" in c else "")
         print(f"time {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
+              f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
+              + (f" ({c['library_label']})" if "library_label" in c else "")
+              + f", "
               f"bound {b_ms:.4f} ms ({b_by}), "
               f"{c['nbytes'] / ms / 1e6:.1f} GB/s"
               + (f"; {c['after']()}" if "after" in c else ""))

@@ -55,11 +55,6 @@
 //   a tap broadcast per tap).
 // * Lane s stores the group's outputs s, s + split, ..., picked from the
 //   registers by selects, so the whole warp runs the epilogue at once.
-// * Slots: a Problem may hold several independent problems over one
-//   shared body (a channel bank: one wideband block, a history, LO phase
-//   and increment and output row per slot). The grid's y dimension is
-//   the slot, so one launch serves them all; each block offsets its
-//   Problem's pointers by its slot before anything reads them.
 // * Sums are float32 FMAs with separate real and imaginary accumulators:
 //   no TF32 and no tensor cores (a 10-bit product mantissa would miss
 //   the port's 1e-5 bar, and the FIR is below the card's f32 balance of
@@ -94,11 +89,6 @@ struct Problem {
   const int64_t* inc;
   void* y;
   int n_out, tpad, decim;
-  // slots: independent problems over one shared body, one per grid row
-  // (blockIdx.y). Slot c reads hist + c*hist_slot samples, phase0 + c and
-  // inc + c, and writes y + c*y_slot outputs; one slot needs no strides.
-  int slots = 1;
-  int64_t hist_slot = 0, y_slot = 0;
 };
 
 // ---------------------------------------------------------------------------
@@ -276,13 +266,6 @@ polyphase_fir_kernel(Problem pr, Layout lay) {
   // the taps follow the planes with no padding
   static_assert(sizeof(G) <= sizeof(S), "taps wider than samples");
   extern __shared__ __align__(16) unsigned char smem[];
-  {  // this block's slot (0 for a single problem)
-    const int c = blockIdx.y;
-    pr.hist = static_cast<const S*>(pr.hist) + c * pr.hist_slot;
-    pr.y = static_cast<S*>(pr.y) + c * pr.y_slot;
-    pr.phase0 += c;  // null (and c = 0) where the policies read neither
-    pr.inc += c;
-  }
   const int D = pr.decim, P = lay.plane, split = lay.split;
   S* xs = reinterpret_cast<S*>(smem);
   G* gs = reinterpret_cast<G*>(xs + D * P);
@@ -393,8 +376,7 @@ int launch_r(const Problem& pr, const Layout& lay, int threads,
     if (e != cudaSuccess) return (int)e;
   }
   polyphase_fir_kernel<S, R, Taps, Epi>
-      <<<dim3(lay.grid, pr.slots), threads, (size_t)lay.smem, stream>>>(pr,
-                                                                       lay);
+      <<<lay.grid, threads, (size_t)lay.smem, stream>>>(pr, lay);
   return (int)cudaGetLastError();
 }
 
@@ -408,8 +390,7 @@ int launch(const Problem& pr, const Geometry& geo, cudaStream_t stream) {
   if (geo.threads <= 0 || geo.threads > MAX_THREADS || geo.threads % 32 ||
       geo.split <= 0 || (geo.split & (geo.split - 1)) || geo.split > 32 ||
       geo.r <= 0 || (geo.r & (geo.r - 1)) || geo.r > 8 ||
-      pr.decim <= 0 || pr.tpad < pr.decim || pr.tpad % pr.decim ||
-      pr.slots < 1 || pr.slots > 65535)
+      pr.decim <= 0 || pr.tpad < pr.decim || pr.tpad % pr.decim)
     return (int)cudaErrorInvalidValue;
   const Layout lay =
       layout(pr, geo, sizeof(S), sizeof(typename Taps::G));

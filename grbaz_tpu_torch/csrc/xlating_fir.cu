@@ -6,9 +6,7 @@
 //     channelizer -- entry point xlating_fir_block below;
 //   * xlating_fir_frame_pallas_rtf (_run_rtf / _kernel_rtf): the same
 //     math under the frame convention -- entry point xlating_fir_frame_rtf.
-// A third entry point, xlating_fir_bank, runs the same math for the
-// channel bank's slots in one launch. All three launch the one kernel;
-// only the input addressing differs.
+// Both launch the one kernel; only the input addressing differs.
 //
 // With i the sample index relative to the first NEW sample x[0] (negative
 // over the tpad-1 samples of history), rotate-then-filter is
@@ -84,39 +82,6 @@ extern "C" int xlating_fir_block(const void* x, const void* tail, int64_t n,
   return launch(static_cast<const float2*>(tail),
                 static_cast<const float2*>(x), n, h, phase0, inc, y, n_out,
                 tpad, decim, geo, static_cast<cudaStream_t>(stream));
-}
-
-// Channel bank (grbaz_tpu/parallel/channel_bank.py: DynamicChannelBank,
-// whose per-slot channelizer is B1's math): one wideband block x[n]
-// shared by `slots` channels, one launch for all of them (grid row =
-// slot). Slot c has its own UNROTATED history hist[c*(tpad-1) ...] of
-// tpad-1 samples (the block's last tpad-1 before x[0]), its phase
-// phase0[c] and increment inc[c] (int64 device arrays of uint32 values),
-// and writes its n_out rotated outputs at y[c*n_out].
-//
-// Bound on an H100 at the scanner's shape (16 slots, 2^17 samples in,
-// decim 8, 104 taps): operations. The function, B1's rotate-then-filter
-// per slot, is 16 x (6 x 2^17 + 4 x 104 x 16384) = 121.6 MFLOP, 1.8 us
-// at 67 TFLOP/s (the factored form computed here does 8 FLOP a tap,
-// 218 MFLOP); the bytes are 1 MiB of block (read once from memory, then
-// from L2 by every slot), 16 x 103 x 8 of history and 2 MiB of outputs,
-// 0.9 us at 3.35 TB/s. Measured 14.0 us (PERF.md), 13% of the bound's
-// rate, where 16 launches of the single-slot entry point take 16 x 10.1
-// us: one launch, and one wave of 512 blocks (tiles of 512 outputs, the
-// regime of all slots' outputs together) in which every slot's tiles
-// stage the shared block from L2.
-extern "C" int xlating_fir_bank(const void* x, const void* hist, int64_t n,
-                                const float* h, const int64_t* phase0,
-                                const int64_t* inc, void* y, int n_out,
-                                int tpad, int decim, int slots, Geometry geo,
-                                void* stream) {
-  Problem pr{static_cast<const float2*>(hist) - 1,
-             x, n, h, phase0, inc, y, n_out, tpad, decim};
-  pr.slots = slots;
-  pr.hist_slot = tpad - 1;
-  pr.y_slot = n_out;
-  return pfir::launch<float2, pfir::RotatedTaps, pfir::StoreRotated>(
-      pr, geo, static_cast<cudaStream_t>(stream));
 }
 
 // frame[tpad-1+n] = concat(tail[1:], x); phase0 is the phase of frame

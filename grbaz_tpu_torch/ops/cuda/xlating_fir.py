@@ -13,10 +13,6 @@ Replaces two TPU kernels of ``grbaz_tpu/ops/pallas/wbfm_frontend.py``:
   same over ``frame = concat(tail[1:], x)``; a second entry point of the
   same CUDA kernel.
 
-:func:`xlating_fir_bank` is a third entry point for a channel bank: B1's
-math for C slots over one shared block in one launch, each slot with its
-own unrotated history ``[C, tpad-1]``, ``phase0[C]`` and ``lo_inc[C]``.
-
 The kernel computes the factored form: B2's rotated complex taps over
 the raw samples, then one LO rotation per output (``csrc/xlating_fir.cu``);
 the plain twins stay rotate-then-filter, the independent reference it is
@@ -42,8 +38,6 @@ _G = tiling.Geometry
 _SIGNATURES = {
     "xlating_fir_block": [_P, _P, _I64, _P, _P, _P, _P, _I, _I, _I, _G, _P],
     "xlating_fir_frame_rtf": [_P, _I64, _P, _P, _P, _P, _I, _I, _I, _G, _P],
-    "xlating_fir_bank": [_P, _P, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _G,
-                         _P],
 }
 
 
@@ -70,21 +64,11 @@ def xlating_fir_frame_rtf_plain(frame, h_rev_pad, decim, phase0, lo_inc):
     return fir.fir_decimate_frame(frame * lo, h_rev_pad, decim)
 
 
-def xlating_fir_bank_plain(x, hist, h_rev_pad, decim, phase0, lo_inc):
-    """Slot by slot through :func:`xlating_fir_block_plain`; ``hist[c]``
-    is slot c's ``tail[1:]``."""
-    pad = hist.new_zeros(hist.shape[0], 1)
-    tails = torch.cat([pad, hist], dim=1)
-    return torch.stack([
-        xlating_fir_block_plain(x, tails[c], h_rev_pad, decim, phase0[c],
-                                lo_inc[c]) for c in range(hist.shape[0])])
-
-
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _check_common(h_rev_pad, decim, phase0, lo_inc, dev, slots=None):
+def _check_common(h_rev_pad, decim, phase0, lo_inc, dev):
     if h_rev_pad.shape[0] % decim:
         raise ValueError("taps must be padded to a multiple of decim")
     if h_rev_pad.dtype != torch.float32:
@@ -94,13 +78,9 @@ def _check_common(h_rev_pad, decim, phase0, lo_inc, dev, slots=None):
         if t.device != dev:
             raise ValueError(f"{name} must lie on {dev}, not {t.device}")
     for name, t in (("phase0", phase0), ("lo_inc", lo_inc)):
-        if slots is None and (t.dtype != torch.int64 or t.numel() != 1):
+        if t.dtype != torch.int64 or t.numel() != 1:
             raise TypeError(f"{name} must be a 0-d int64 tensor "
                             "(uint32 value)")
-        if slots is not None and (t.dtype != torch.int64
-                                  or t.shape != (slots,)):
-            raise TypeError(f"{name} must be an int64 tensor of shape "
-                            f"({slots},) (uint32 values)")
 
 
 def _c64(t, name):
@@ -153,34 +133,6 @@ def xlating_fir_frame_rtf_kernel(frame, h_rev_pad, decim, phase0, lo_inc):
     return y
 
 
-def xlating_fir_bank_kernel(x, hist, h_rev_pad, decim, phase0, lo_inc):
-    if not x.is_cuda:
-        raise ValueError("xlating_fir_bank_kernel needs CUDA tensors")
-    slots = hist.shape[0]
-    _check_common(h_rev_pad, decim, phase0, lo_inc, x.device, slots)
-    tpad = h_rev_pad.shape[0]
-    if hist.dim() != 2 or hist.shape[1] != tpad - 1 \
-            or hist.device != x.device:
-        raise ValueError(f"hist must be [slots, {tpad - 1}] on {x.device}")
-    if not 1 <= slots <= 65535:
-        raise ValueError(f"{slots} slots; the kernel takes 1 to 65535")
-    x, hist = _c64(x, "x"), _c64(hist, "hist")
-    h = h_rev_pad.contiguous()
-    phase0, lo_inc = phase0.contiguous(), lo_inc.contiguous()
-    n = x.shape[0]
-    n_out = n // decim
-    y = torch.empty(slots, n_out, dtype=torch.complex64, device=x.device)
-    # the launch regime follows the bank's outputs over all slots
-    err = _lib().xlating_fir_bank(
-        x.data_ptr(), hist.data_ptr(), n, h.data_ptr(), phase0.data_ptr(),
-        lo_inc.data_ptr(), y.data_ptr(), n_out, tpad, decim, slots,
-        tiling.for_tensor(x, n_out * slots, tpad, decim, 8),  # complex taps
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "xlating_fir_bank")
-    xlating_fir_bank.launches += 1
-    return y
-
-
 # ---------------------------------------------------------------------------
 # wrappers: kernel on the card, plain version on the CPU
 # ---------------------------------------------------------------------------
@@ -204,17 +156,5 @@ def xlating_fir_frame_rtf(frame, h_rev_pad, decim, phase0, lo_inc):
                                        lo_inc)
 
 
-def xlating_fir_bank(x, hist, h_rev_pad, decim, phase0, lo_inc):
-    """Rotated channel outputs ``[C, len(x)//decim]`` of C channels over
-    one block ``x``: slot c has the unrotated history ``hist[c]``
-    (``tpad-1`` samples), phase ``phase0[c]`` at ``x[0]`` and increment
-    ``lo_inc[c]``. One launch for all slots."""
-    if x.is_cuda:
-        return xlating_fir_bank_kernel(x, hist, h_rev_pad, decim, phase0,
-                                       lo_inc)
-    return xlating_fir_bank_plain(x, hist, h_rev_pad, decim, phase0, lo_inc)
-
-
 xlating_fir_block.launches = 0
 xlating_fir_frame_rtf.launches = 0
-xlating_fir_bank.launches = 0

@@ -15,15 +15,12 @@ both ways: ``phase`` [C] (uint32 as int64), ``tail`` [C, tpad-1] of
 ROTATED samples (the last ``tpad-1`` of ``x * lo``) and ``prev`` [C].
 
 ``backend``: the kernel arm (``'kernel'``, or ``'auto'`` on the card)
-runs all slots in one launch of B1's slot-batched entry point
-(``ops/cuda/xlating_fir.xlating_fir_bank``), which filters an UNROTATED
-history. Before the launch the bank derotates its rotated tail with each
-slot's current increment (sample i < 0 times ``conj(lo(phase0 +
-i*lo_inc))``), so the kernel's rotation gives back the rotated tail even
-after a retune, when the JAX package's history, rotated under the old
-increment, meets the new one; after it, the bank rotates the block's
-last ``tpad-1`` samples into the new tail. The plain arm (``'plain'``,
-or 'auto' on the CPU) is the JAX package's rotate-then-filter.
+runs all slots in one launch of the bank's own kernel
+(``ops/cuda/channel_bank.channel_bank``), which takes and gives back the
+rotated tail as it is carried, so no tail is derotated or rotated on
+the host; on CPU tensors that wrapper runs its plain version. The plain
+arm (``'plain'``, or 'auto' on the CPU) is the JAX package's
+rotate-then-filter (``channel_bank_plain``).
 """
 
 from __future__ import annotations
@@ -37,8 +34,9 @@ from grbaz_tpu_torch.core.block import Block
 from grbaz_tpu_torch.core.device import U32_MASK, resolve_device, scalar
 from grbaz_tpu_torch.core.stream import Stream
 from grbaz_tpu_torch.ops import exact
-from grbaz_tpu_torch.ops.fir import (BACKENDS, fir_decimate_frame,
-                                     low_pass_taps, prepare_taps)
+from grbaz_tpu_torch.ops.cuda.channel_bank import (channel_bank,
+                                                   channel_bank_plain)
+from grbaz_tpu_torch.ops.fir import BACKENDS, low_pass_taps, prepare_taps
 
 
 class DynamicChannelBank(Block):
@@ -119,25 +117,11 @@ class DynamicChannelBank(Block):
 
     def _channelize(self, x, phase0, inc, tail):
         """(rotated outputs [C, n/decim], new rotated tail [C, hist])."""
-        n, hist = x.shape[0], self.hist
-        p, i = phase0[:, None], inc[:, None]
-
-        def span(a, b):
-            return torch.arange(a, b, dtype=torch.int64, device=x.device)
         if self._use_kernel():
-            from grbaz_tpu_torch.ops.cuda.xlating_fir import xlating_fir_bank
-            unrot = tail * exact.lo_at(p, i, span(-hist, 0), conj=True)
-            y = xlating_fir_bank(x, unrot, self.h_rev_pad, self.decim,
-                                 phase0, inc)
-            m = min(n, hist)
-            new = x[n - m:] * exact.lo_at(p, i, span(n - m, n))
-            if m < hist:
-                new = torch.cat([tail[:, m:], new], dim=1)
-            return y, new
-        frames = torch.cat([tail, x * exact.lo_at(p, i, span(0, n))], dim=1)
-        y = torch.stack([fir_decimate_frame(f, self.h_rev_pad, self.decim)
-                         for f in frames])
-        return y, frames[:, -hist:]
+            return channel_bank(x, tail, self.h_rev_pad, self.decim, phase0,
+                                inc)
+        return channel_bank_plain(x, tail, self.h_rev_pad, self.decim,
+                                  phase0, inc)
 
     def apply(self, state, params, x: Stream):
         n = x.data.shape[0]

@@ -1,5 +1,5 @@
-"""Port DynamicChannelBank (BASELINE config 5) and B1's slot-batched
-entry point == grbaz_tpu."""
+"""Port DynamicChannelBank (BASELINE config 5) == grbaz_tpu, and the
+plain version of the bank's kernel == B1's plain twin slot by slot."""
 
 import jax
 import jax.numpy as jnp
@@ -11,7 +11,8 @@ from grbaz_tpu.core import checkpoint as jckpt
 from grbaz_tpu.parallel.channel_bank import DynamicChannelBank as JBank
 from grbaz_tpu_torch.convert import to_numpy
 from grbaz_tpu_torch.core import checkpoint as tckpt
-from grbaz_tpu_torch.ops import fir
+from grbaz_tpu_torch.ops import exact, fir
+from grbaz_tpu_torch.ops.cuda import channel_bank as cb
 from grbaz_tpu_torch.ops.cuda import xlating_fir as xf
 from grbaz_tpu_torch.parallel.channel_bank import DynamicChannelBank
 from tests.torch_parity import jax_run, port_run
@@ -74,9 +75,9 @@ def test_bank_matches_jax_with_add_remove_retune_reuse(backend, n, counts):
     """Six blocks with channels added, removed, retuned and a slot reused
     (partial blocks where count < capacity; blocks shorter than the
     filter's history): quad within 1e-4 of its max, the active flags
-    equal, state within f32. The kernel arm (derotated history, B1's
-    slot-batched entry point's plain twin here) holds the JAX package's
-    rotated tail through the retune."""
+    equal, state within f32. The kernel arm (the bank kernel's wrapper,
+    its plain version on the CPU) holds the JAX package's rotated tail
+    through the retune."""
     outs, jst, tst = _run_both(backend, n, counts)
     for jo, to in outs:
         (jq, jc), (ja, _) = jo
@@ -162,25 +163,38 @@ def test_bank_checkpoint_loads_both_ways(tmp_path, direction):
         assert np.abs(g[0][0] - w[0][0]).max() <= 1e-4 * np.abs(w[0][0]).max()
 
 
-@pytest.mark.parametrize("slots", [1, 3, 16])
+@pytest.mark.parametrize("slots", [1, 3, 16, 20])
 @pytest.mark.parametrize("n,decim", [(4096, 8), (1000, 4), (37, 8)])
-def test_xlating_fir_bank_plain_equals_per_slot_b1_plain(slots, n, decim):
-    """The slot-batched plain twin: slot c equals B1's plain twin with
-    the tail [0, hist[c]], at wrap-heavy phases and increments."""
+def test_channel_bank_plain_equals_per_slot_b1_plain(slots, n, decim):
+    """The bank kernel's plain version: slot c's outputs equal B1's plain
+    twin over the slot's rotated tail derotated under its phase and
+    increment (the tail [0, tail[c] * conj(lo)]) within 1e-5 of their
+    max, at wrap-heavy phases and increments; the new tail is the last
+    tpad-1 samples of [tail[c], x * lo] (the old tail's remainder first
+    when n < tpad-1), within f32 rounding of the LO."""
     gen = np.random.default_rng(slots + n)
     h = torch.from_numpy(fir.prepare_taps(
         fir.low_pass_taps(1.0, FS, 112.5e3, 75e3), decim))
-    hist = torch.from_numpy((gen.standard_normal((slots, h.shape[0] - 1))
-                             + 1j * gen.standard_normal(
-                                 (slots, h.shape[0] - 1))).astype(
-                                     np.complex64))
+    hist = h.shape[0] - 1
+    tail = torch.from_numpy((gen.standard_normal((slots, hist))
+                             + 1j * gen.standard_normal((slots, hist)))
+                            .astype(np.complex64))
     x = torch.from_numpy((gen.standard_normal(n) + 1j
                           * gen.standard_normal(n)).astype(np.complex64))
     ph = torch.from_numpy(gen.integers(2 ** 32 - 4096, 2 ** 32, slots))
     inc = torch.from_numpy(gen.integers(2 ** 31, 2 ** 32, slots))
-    got = xf.xlating_fir_bank(x, hist, h, decim, ph, inc)
-    assert got.shape == (slots, n // decim)
+    y, new_tail = cb.channel_bank(x, tail, h, decim, ph, inc)
+    assert y.shape == (slots, n // decim)
+    assert new_tail.shape == tail.shape
+    past = torch.arange(-hist, 0)
     for c in range(slots):
-        tail = torch.cat([torch.zeros(1, dtype=torch.complex64), hist[c]])
-        ref = xf.xlating_fir_block_plain(x, tail, h, decim, ph[c], inc[c])
-        assert torch.equal(got[c], ref)
+        unrot = tail[c] * exact.lo_at(ph[c], inc[c], past, conj=True)
+        ref = xf.xlating_fir_block_plain(
+            x, torch.cat([torch.zeros(1, dtype=torch.complex64), unrot]), h,
+            decim, ph[c], inc[c])
+        if n // decim:
+            assert (y[c] - ref).abs().max() <= 1e-5 * ref.abs().max()
+        frame = torch.cat([tail[c], x * exact.lo_at(ph[c], inc[c],
+                                                    torch.arange(n))])
+        want = frame[-hist:]
+        assert (new_tail[c] - want).abs().max() <= 1e-6 * want.abs().max()

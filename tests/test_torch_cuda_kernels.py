@@ -17,7 +17,8 @@ import torch
 from grbaz_tpu_torch.core.executor import InputSpec, StreamExecutor
 from grbaz_tpu_torch.core.stream import Stream
 from grbaz_tpu_torch.models import wbfm
-from grbaz_tpu_torch.ops import fir
+from grbaz_tpu_torch.ops import exact, fir
+from grbaz_tpu_torch.ops.cuda import channel_bank as cb
 from grbaz_tpu_torch.ops.cuda import fir_decimate as fd
 from grbaz_tpu_torch.ops.cuda import tiling
 from grbaz_tpu_torch.ops.cuda import xlating_fir as xf
@@ -413,106 +414,243 @@ def test_dispatch_does_not_wait_for_the_card(dev):
 
 def _bank_inputs(gen, slots, n, decim, dev, wrap):
     h = _taps(decim, dev)
-    hist = _cn(gen, slots * (h.shape[0] - 1), dev).reshape(slots, -1)
+    tail = _cn(gen, slots * (h.shape[0] - 1), dev).reshape(slots, -1)
     if wrap:  # phases and increments that wrap every few samples
         ph = gen.integers(2 ** 32 - 4096, 2 ** 32, slots)
         inc = gen.integers(2 ** 31, 2 ** 32, slots)
     else:
         ph = gen.integers(0, 2 ** 32, slots)
         inc = gen.integers(0, 2 ** 26, slots)
-    return (_cn(gen, n, dev), hist, h, torch.from_numpy(ph).to(dev),
+    return (_cn(gen, n, dev), tail, h, torch.from_numpy(ph).to(dev),
             torch.from_numpy(inc).to(dev))
 
 
-@pytest.mark.parametrize("slots", [1, 3, 16])
+@pytest.mark.parametrize("slots", [1, 3, 16, 20])
 @pytest.mark.parametrize("n,decim", [(1 << 17, 8), (8192 + 24, 8), (1000, 4),
                                      (37, 8)])
 @pytest.mark.parametrize("wrap", [False, True])
-def test_xlating_fir_bank_kernel_matches_plain(dev, slots, n, decim, wrap):
-    """The slot-batched entry point against its plain twin (B1's plain
-    twin slot by slot), one launch for all slots, and each slot against
-    B1's single-slot kernel."""
+def test_channel_bank_kernel_matches_plain(dev, slots, n, decim, wrap):
+    """The bank's kernel against its plain version over two chained
+    blocks, one launch a call (20 slots: two slot groups), the second call
+    on the first's new tail with every other slot retuned (its tail
+    rotated under the old increment); y and the new tail within 1e-5.
+    Each slot of the first call also against B1's single-slot kernel over
+    the derotated tail."""
     gen = np.random.default_rng(slots * 1000 + n + decim + wrap)
-    x, hist, h, ph, inc = _bank_inputs(gen, slots, n, decim, dev, wrap)
-    before = xf.xlating_fir_bank.launches
-    got = xf.xlating_fir_bank(x, hist, h, decim, ph, inc)
-    ref = xf.xlating_fir_bank_plain(x, hist, h, decim, ph, inc)
+    x, tail, h, ph, inc = _bank_inputs(gen, slots, n, decim, dev, wrap)
+    x2 = _cn(gen, n, dev)
+    inc2 = torch.where(torch.arange(slots, device=dev) % 2 == 0,
+                       inc ^ 0x5A5A5A5, inc)
+    ph2 = (ph + n * inc) & 0xFFFFFFFF
+    before = cb.channel_bank.launches
+    y, t = cb.channel_bank(x, tail, h, decim, ph, inc)
+    y2, t2 = cb.channel_bank(x2, t, h, decim, ph2, inc2)
+    ref, ref_t = cb.channel_bank_plain(x, tail, h, decim, ph, inc)
+    ref2, ref_t2 = cb.channel_bank_plain(x2, ref_t, h, decim, ph2, inc2)
     torch.cuda.synchronize()
-    assert xf.xlating_fir_bank.launches == before + 1
-    assert got.shape == ref.shape == (slots, n // decim)
-    assert _err(got, ref) < 1e-5
-    pad = torch.zeros(slots, 1, dtype=torch.complex64, device=dev)
-    tails = torch.cat([pad, hist], dim=1)
+    assert cb.channel_bank.launches == before + 2
+    assert y.shape == ref.shape == (slots, n // decim)
+    assert t.shape == ref_t.shape == tail.shape
+    if n // decim:
+        assert _err(y, ref) < 1e-5
+        assert _err(y2, ref2) < 1e-5
+    assert _err(t, ref_t) < 1e-5
+    assert _err(t2, ref_t2) < 1e-5
+    if n // decim == 0:
+        return
+    hist = tail.shape[1]
+    past = torch.arange(-hist, 0, device=dev)
+    zero = torch.zeros(1, dtype=torch.complex64, device=dev)
     for c in range(slots):
-        one = xf.xlating_fir_block_kernel(x, tails[c], h, decim, ph[c],
-                                          inc[c])
-        assert _err(one, got[c]) < 1e-5, c
+        unrot = tail[c] * exact.lo_at(ph[c], inc[c], past, conj=True)
+        one = xf.xlating_fir_block_kernel(x, torch.cat([zero, unrot]), h,
+                                          decim, ph[c], inc[c])
+        assert _err(one, y[c]) < 1e-5, c
 
 
-def test_xlating_fir_bank_refuses_bad_input(dev):
+def test_channel_bank_kernel_takes_a_misaligned_view(dev):
+    """x one sample into its storage (8-byte, not 16-byte aligned), and a
+    tail view: the kernel copies samples one by one and the wrapper makes
+    the tail contiguous."""
+    gen = np.random.default_rng(9)
+    x, tail, h, ph, inc = _bank_inputs(gen, 5, 8192 + 9, 8, dev, True)
+    xv = x[1:]
+    assert xv.data_ptr() % 16 == 8
+    wide = torch.cat([tail, tail], dim=1)[:, :tail.shape[1]]
+    y, t = cb.channel_bank(xv, wide, h, 8, ph, inc)
+    ref, ref_t = cb.channel_bank_plain(xv, tail, h, 8, ph, inc)
+    torch.cuda.synchronize()
+    assert _err(y, ref) < 1e-5 and _err(t, ref_t) < 1e-5
+
+
+def test_channel_bank_refuses_bad_input(dev):
     gen = np.random.default_rng(5)
-    x, hist, h, ph, inc = _bank_inputs(gen, 4, 4096, 8, dev, False)
+    x, tail, h, ph, inc = _bank_inputs(gen, 4, 4096, 8, dev, False)
     with pytest.raises(TypeError):
-        xf.xlating_fir_bank(x, hist, h, 8, ph[:3], inc)
+        cb.channel_bank(x, tail, h, 8, ph[:3], inc)
     with pytest.raises(TypeError):
-        xf.xlating_fir_bank(x, hist, h, 8, ph, inc.to(torch.int32))
+        cb.channel_bank(x, tail, h, 8, ph, inc.to(torch.int32))
     with pytest.raises(ValueError):
-        xf.xlating_fir_bank(x, hist[:, 1:], h, 8, ph, inc)
+        cb.channel_bank(x, tail[:, 1:], h, 8, ph, inc)
     with pytest.raises(ValueError):
-        xf.xlating_fir_bank(x, hist.cpu(), h, 8, ph, inc)
+        cb.channel_bank(x, tail.cpu(), h, 8, ph, inc)
     with pytest.raises(TypeError):
-        xf.xlating_fir_bank(x.real, hist, h, 8, ph, inc)
-    # straight through the C entry point: no slot, or a bad geometry, is
-    # refused with cudaErrorInvalidValue (1) and never launched
+        cb.channel_bank(x.real, tail, h, 8, ph, inc)
+    with pytest.raises(ValueError):
+        cb.channel_bank(x, tail, h[1:], 8, ph, inc)
+    # straight through the C entry point: no slot, a bad decim, taps that
+    # are no multiple of decim, an output count that is not n // decim, or
+    # taps or a decim past the kernel's int sizes (MAX_TAPS, MAX_DECIM) are
+    # refused with cudaErrorInvalidValue (1) and never launched; 8192 taps
+    # (several slabs) are taken
     tpad, n_out = h.shape[0], 512
     y = torch.empty(4, n_out, dtype=torch.complex64, device=dev)
+    nt = torch.empty_like(tail)
+    big = torch.zeros(8192, device=dev)
+    big_tail = torch.zeros(4, 8191, dtype=torch.complex64, device=dev)
+    big_nt = torch.empty_like(big_tail)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    good = tiling.for_tensor(x, 4 * n_out, tpad, 8, 8)
-    lib = xf._lib()
+    lib = cb._lib()
 
-    def launch(slots, geo):
-        return lib.xlating_fir_bank(
-            x.data_ptr(), hist.data_ptr(), 4096, h.data_ptr(),
-            ph.data_ptr(), inc.data_ptr(), y.data_ptr(), n_out, tpad, 8,
-            slots, geo, stream)
-    assert launch(0, good) == 1
-    assert launch(65536, good) == 1
-    assert launch(4, tiling.Geometry(good.threads, 0, good.split)) == 1
-    assert launch(4, good) == 0
+    def launch(slots=4, decim=8, taps=tpad, outs=n_out, hp=h, tl=tail,
+               ntl=nt):
+        return lib.channel_bank(
+            x.data_ptr(), tl.data_ptr(), 4096, hp.data_ptr(),
+            ph.data_ptr(), inc.data_ptr(), y.data_ptr(), ntl.data_ptr(), outs,
+            taps, decim, slots, stream)
+    assert launch(slots=0) == 1
+    assert launch(decim=0) == 1
+    assert launch(taps=tpad - 1) == 1
+    assert launch(outs=n_out - 1) == 1
+    assert launch(taps=(1 << 24) + 8) == 1
+    assert launch(decim=1 << 21, taps=1 << 21, outs=0) == 1
+    assert launch(taps=8192, hp=big, tl=big_tail, ntl=big_nt) == 0
+    torch.cuda.synchronize()
+    assert not y.any()  # zero taps, zero tail
+    assert launch() == 0
+    torch.cuda.synchronize()
+    # pfir::launch checks every Geometry field before it divides by r:
+    # r = 0 is refused through B1's single-slot entry point
+    good = tiling.for_tensor(x, n_out, tpad, 8, 8)
+    one = torch.empty(n_out, dtype=torch.complex64, device=dev)
+    full = torch.cat([torch.zeros(1, dtype=torch.complex64, device=dev),
+                      tail[0]])
+    for geo in (tiling.Geometry(good.threads, 0, good.split), good):
+        err = xf._lib().xlating_fir_block(
+            x.data_ptr(), full.data_ptr(), 4096, h.data_ptr(),
+            ph[0].data_ptr(), inc[0].data_ptr(), one.data_ptr(), n_out,
+            tpad, 8, geo, stream)
+        assert err == (0 if geo is good else 1)
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("n", [1 << 17, 1000])
-def test_channel_bank_kernel_arm_equals_plain_arm(dev, n):
+def _hann(n):
+    return lambda: np.hanning(n).astype(np.float32)
+
+
+def _nbfm(transition):
+    return lambda: fir.low_pass_taps(1.0, FS, 6.25e3 + transition / 2,
+                                     transition)
+
+
+# name: (taps, decim, block). 1544 taps at decim 8 (4 slabs of taps),
+# 8192 at decim 8 (21 slabs), 4096 at decim 256 (slabs of fewer taps than
+# decim; 2 head passes of 2 frame slabs), 5000 at decim 1 (157 head
+# passes of 2 frame slabs)
+LONG_FILTERS = {"nbfm-1544": (_nbfm(5e3), 8, 1 << 17),
+                "hann-8192": (_hann(8192), 8, 1 << 15),
+                "nbfm-4096-decim256": (_nbfm(2e3), 256, 40000),
+                "hann-5000-decim1": (_hann(5000), 1, 12000)}
+
+
+@pytest.mark.parametrize("name", list(LONG_FILTERS))
+@pytest.mark.parametrize("slots", [4, 20])
+def test_channel_bank_kernel_takes_long_filters(dev, name, slots):
+    """Filters far longer than the scanner's, which the kernel takes in
+    slabs of taps, against the plain version over two chained blocks, the
+    second retuned; y and the new tail within 1e-5."""
+    taps, decim, n = LONG_FILTERS[name]
+    gen = np.random.default_rng(slots + decim + n)
+    h = torch.from_numpy(fir.prepare_taps(taps(), decim)).to(dev)
+    ph = torch.from_numpy(gen.integers(2 ** 32 - 4096, 2 ** 32, slots))
+    inc = torch.from_numpy(gen.integers(2 ** 31, 2 ** 32, slots))
+    ph, inc = ph.to(dev), inc.to(dev)
+    tail = _cn(gen, slots * (h.shape[0] - 1), dev).reshape(slots, -1)
+    x, x2 = _cn(gen, n, dev), _cn(gen, n, dev)
+    inc2 = inc ^ 0x5A5A5A5
+    ph2 = (ph + n * inc) & 0xFFFFFFFF
+    y, t = cb.channel_bank(x, tail, h, decim, ph, inc)
+    y2, t2 = cb.channel_bank(x2, t, h, decim, ph2, inc2)
+    ref, ref_t = cb.channel_bank_plain(x, tail, h, decim, ph, inc)
+    ref2, ref_t2 = cb.channel_bank_plain(x2, ref_t, h, decim, ph2, inc2)
+    torch.cuda.synchronize()
+    for got, want in ((y, ref), (t, ref_t), (y2, ref2), (t2, ref_t2)):
+        assert got.shape == want.shape
+        assert _err(got, want) < 1e-5
+
+
+BANK_TUNINGS = (-1.2e6, -400e3, 250e3, 900e3, 600e3, -700e3)
+
+
+def _stations(gen, n, dev, deviation=5e3):
+    """4 blocks of n samples: an FM station on every frequency the bank
+    tunes to (tone 1 kHz + 100 Hz a station), noise 50 dB down."""
+    t = torch.arange(4 * n, dtype=torch.float64, device=dev) / FS
+    x = 0.003 * _cn(gen, 4 * n, dev)
+    for k, f in enumerate(BANK_TUNINGS):
+        tone = 1e3 + 100 * k
+        ph = 2 * np.pi * f * t + deviation / tone * torch.sin(
+            2 * np.pi * tone * t)
+        x = x + torch.polar(torch.ones_like(t), ph).to(torch.complex64)
+    return list(x.reshape(4, n))
+
+
+def _arm_vs_plain(dev, n, capacity, width, transition, stations=False):
     """DynamicChannelBank over 4 chained blocks with inactive slots, a
     removal, a retune and a reused slot: the kernel arm (one launch per
-    block) against the plain arm, outputs and state."""
+    block) against the plain arm, outputs and state. Over noise, or over
+    a station on every channel (a narrow channel of noise demodulates to
+    angles of samples near zero, where rounding flips them)."""
     gen = np.random.default_rng(n)
-    blocks = [_cn(gen, n, dev) for _ in range(4)]
+    blocks = (_stations(gen, n, dev) if stations
+              else [_cn(gen, n, dev) for _ in range(4)])
     from grbaz_tpu_torch.parallel.channel_bank import DynamicChannelBank
     outs, states = {}, {}
-    before = xf.xlating_fir_bank.launches
+    before = cb.channel_bank.launches
     for backend in ("kernel", "plain"):
-        bank = DynamicChannelBank(16, FS, 8, 150e3, 75e3, backend=backend,
-                                  device=dev)
+        bank = DynamicChannelBank(capacity, FS, 8, width, transition,
+                                  backend=backend, device=dev)
         st, pr, qs = bank.init_state(), bank.init_params(), []
-        for f in (-1.2e6, -400e3, 250e3, 900e3):
+        for f in BANK_TUNINGS[:4]:
             bank.add_channel(pr, f)
         for b, x in enumerate(blocks):
             if b == 1:
                 bank.remove_channel(pr, 1)
-                bank.retune(pr, 2, 600e3)
+                bank.retune(pr, 2, BANK_TUNINGS[4])
             if b == 2:
-                assert bank.add_channel(pr, -700e3) == 1
+                assert bank.add_channel(pr, BANK_TUNINGS[5]) == 1
             st, (q, act) = bank.apply(st, pr, Stream.full(x))
             qs.append(q.data)
         outs[backend], states[backend] = torch.cat(qs, dim=1), st
-    assert xf.xlating_fir_bank.launches == before + len(blocks)
+    assert cb.channel_bank.launches == before + len(blocks)
     assert _err(outs["kernel"], outs["plain"]) < 1e-4
     assert not outs["kernel"][4:].any()  # never-active slots stay zero
     for k in ("tail", "prev"):
         assert _err(states["kernel"][k], states["plain"][k]) < 1e-5, k
     assert torch.equal(states["kernel"]["phase"], states["plain"]["phase"])
+
+
+@pytest.mark.parametrize("n", [1 << 17, 1000])
+def test_channel_bank_kernel_arm_equals_plain_arm(dev, n):
+    """The scanner's plan: 16 slots of 150 kHz channels."""
+    _arm_vs_plain(dev, n, 16, 150e3, 75e3)
+
+
+def test_narrow_band_bank_kernel_arm_equals_plain_arm(dev):
+    """A narrow-band plan: 12.5 kHz channels with a 5 kHz transition, 1544
+    taps, which the kernel takes in several slabs; a station on every
+    channel."""
+    _arm_vs_plain(dev, 1 << 17, 4, 12.5e3, 5e3, stations=True)
 
 
 # ---------------------------------------------------------------------------
