@@ -55,6 +55,26 @@ failure of which exits non-zero:
    the gated signal bit for bit; correlation surfaces within 1e-5 of the
    max; radar sums within 1e-5 relative), then timed and profiled.
 
+10. the AM receiver (``am_path``, ``apps/am_fft.py``'s graph): 8 blocks
+    of 2^20 samples at 1.024 Msamp/s through the channel block (B1 at
+    decim 16, 493 taps), AMDemod and the ratio-stream
+    VariableRatioResampler (kernel ``csrc/vrr_walk.cu``, one launch a
+    block) fed a 64/48 ratio stream into 48 kHz audio, with a spectrum of
+    the channel; the tone back within 5 Hz above 30 dB SINAD, the station
+    in its bin, blocks 0-1 against the CPU (counts, q_int and mu_frac
+    equal, audio within 1e-5 of the max), and an overrun raised as on the
+    CPU; then timed and profiled;
+11. the FasTrak decoder (``fastrak_path``): 8 blocks of 2^20 samples of
+    a tag's OOK replies at 4 Msamp/s (24 frames a block, IDs in runs, a
+    bad CRC, a near-sync decoy, a frame across a block boundary) through
+    the envelope, a matched filter of the sync word (B3 at decim 1), an
+    alignment delay and FastrakDecoder (kernel ``csrc/fastrak_fsm.cu``,
+    one launch a block); every passing ID and count found, K1 bit-equal
+    to its plain version on blocks 0-1's card-computed inputs, the CPU
+    path the same IDs; then timed and profiled;
+12. every block of ``ops/basic.py`` and ``ops/misc.py`` in a one-block
+    graph on the card against the CPU (``small_blocks_phase``).
+
 The FSM kernel's cases run at the burst path's [1, 2^20] (its row) and
 at the decoder-bank shape [64, 2^14], the latter also with a smoothed
 average and a look-ahead; each is held to its plain version over two
@@ -64,6 +84,11 @@ fourth case forces a miss in every chunk of the speculative walk
 (sawtooth ramps that span many chunks, a lockout longer than the
 warm-up): the kernel's worst case, held to the same checks. Each case
 prints the chunks the kernel walked again; its bound is its bytes.
+
+The FasTrak kernel's cases run at its path's [1, 2^20], at the decoder
+bank's [64, 2^14] and with the sync stream held high (nearly every chunk
+walked again, its worst case); the ratio-stream kernel at the AM path's
+2^16-sample f32 block, its walk's chain bound printed beside it.
 
 B3's row counts the launches of both its entry points and times the
 block entry point, which the cascade chain's ``FIRDecimator`` launches;
@@ -90,11 +115,12 @@ from grbaz_tpu_torch.core.block import FnBlock
 from grbaz_tpu_torch.core.executor import InputSpec, StreamExecutor
 from grbaz_tpu_torch.core.graph import Flowgraph
 from grbaz_tpu_torch.core.pump import StreamPump
-from grbaz_tpu_torch.core.stream import Stream, StreamMeta, decode_abs_index
+from grbaz_tpu_torch.core.stream import (Stream, StreamMeta, decode_abs_index,
+                                         stream_flags)
 from grbaz_tpu_torch.models.spectral import (FACConfig, SpectralConfig,
                                              build_fac, build_spectrum)
 from grbaz_tpu_torch.models.wbfm import WBFMConfig, WBFMFrontend, build_wbfm
-from grbaz_tpu_torch.ops import doa, exact, fir
+from grbaz_tpu_torch.ops import basic, doa, exact, fir, misc
 from grbaz_tpu_torch.ops.agc import AGC
 from grbaz_tpu_torch.ops.burst import (BurstBuffer, Burster, BursterConfig,
                                        BurstTagger, Gate, Merge, TimeKeeper,
@@ -103,16 +129,23 @@ from grbaz_tpu_torch.ops.colour import Colouriser
 from grbaz_tpu_torch.ops.detect import Correlator, PeakDetector, RadarDetector
 from grbaz_tpu_torch.ops.cuda import build
 from grbaz_tpu_torch.ops.cuda import channel_bank as cb
+from grbaz_tpu_torch.ops.cuda import fastrak_fsm as ff
 from grbaz_tpu_torch.ops.cuda import fir_decimate as fd
 from grbaz_tpu_torch.ops.cuda import peak_fsm as pf
 from grbaz_tpu_torch.ops.cuda import tiling
+from grbaz_tpu_torch.ops.cuda import vrr_walk as vw
 from grbaz_tpu_torch.ops.cuda import xlating_fir as xf
 from grbaz_tpu_torch.ops.cuda import xlating_fir_ctaps as xc
 from grbaz_tpu_torch.ops.wbfm_frontend import rotated_taps
-from grbaz_tpu_torch.ops.fir import FreqXlatingFIRDecimator
+from grbaz_tpu_torch.ops.demod import AMDemod
+from grbaz_tpu_torch.ops.fir import FIRDecimator, FreqXlatingFIRDecimator
+from grbaz_tpu_torch.ops.misc import FastrakDecoder
+from grbaz_tpu_torch.ops.mmse import NTAPS as NTAPS_MMSE
 from grbaz_tpu_torch.ops.resampler import (FractionalResampler,
+                                           VariableRatioResampler,
                                            resample_block,
                                            resample_block_rational)
+from grbaz_tpu_torch.ops.spectral import PowerSpectrum, Vectorize
 from grbaz_tpu_torch.parallel.channel_bank import DynamicChannelBank
 
 FS = 3.2e6
@@ -154,6 +187,15 @@ KERNELS = {  # row -> (wrappers whose launches it counts, source, TPU kernel)
     "peak_fsm": (
         (pf.peak_fsm,), "grbaz_tpu_torch/csrc/peak_fsm.cu",
         "grbaz_tpu/ops/detect.py:236"),
+    # FastrakDecoder's serial FSM (a per-sample lax.scan in the JAX package)
+    "fastrak_fsm": (
+        (ff.fastrak_fsm,), "grbaz_tpu_torch/csrc/fastrak_fsm.cu",
+        "grbaz_tpu/ops/misc.py:72"),
+    # VariableRatioResampler's position walk and interpolation (a
+    # per-output lax.scan in the JAX package)
+    "vrr_walk": (
+        (vw.vrr_walk,), "grbaz_tpu_torch/csrc/vrr_walk.cu",
+        "grbaz_tpu/ops/resampler.py:315"),
 }
 # kernels each path launches; xlating_fir_frame_rtf is the
 # frame-convention entry point of the channelizer kernel, which the JAX
@@ -357,6 +399,23 @@ def kernel_cases(dev):
     planar = [torch.view_as_real(f).T.contiguous()[:, None]
               for f in frames]
     rot_flops = 6 * BLOCK + 4 * tpad * n_out
+    # B1 at the AM path's shape: decim 16 and its channel filter
+    h_am = torch.from_numpy(fir.prepare_taps(am_channel_taps(),
+                                             AM_DECIM)).to(dev)
+    tpad_am, n_am = h_am.shape[0], BLOCK // AM_DECIM
+    inc_am = torch.tensor(int(exact.freq_to_turns_u32(-AM_STATION_HZ, AM_FS)),
+                          device=dev)
+    tail_am = cn(tpad_am)
+    # B3 at the FasTrak path's shape: float32 at decim 1 through the sync
+    # stream's matched filter; each block is the end of a frame
+    h_sync = torch.from_numpy(fir.prepare_taps(fastrak_sync_taps(),
+                                               1)).to(dev)
+    tpad_sync = h_sync.shape[0]
+    sync_frames = copies(lambda: torch.randn(tpad_sync - 1 + BLOCK,
+                                             generator=gen, device=dev),
+                         4 * BLOCK)
+    sync_xs = [f[tpad_sync - 1:] for f in sync_frames]
+    sync_tail = torch.randn(tpad_sync, generator=gen, device=dev)
     return [ctaps_case(h_chan, inc, tail, xs),
         dict(name="xlating_fir_block",
              kernel=lambda i: xf.xlating_fir_block(
@@ -375,6 +434,16 @@ def kernel_cases(dev):
                                                      DECIM, 8),
              nbytes=8 * (tpad - 1 + BLOCK) + 4 * tpad + 8 * n_out + 16,
              flops=rot_flops),
+        dict(name="xlating_fir_block",
+             shape=f"AM channel, decim {AM_DECIM}, {tpad_am} taps",
+             kernel=lambda i: xf.xlating_fir_block(
+                 xs[i % len(xs)], tail_am, h_am, AM_DECIM, phase0, inc_am),
+             plain=lambda i: xf.xlating_fir_block_plain(
+                 xs[i % len(xs)], tail_am, h_am, AM_DECIM, phase0, inc_am),
+             library=None, geometry=tiling.for_tensor(xs[0], n_am, tpad_am,
+                                                     AM_DECIM, 8),
+             nbytes=8 * BLOCK + 12 * tpad_am + 8 * n_am + 16,
+             flops=6 * BLOCK + 4 * tpad_am * n_am),
         # B3's row: the block entry point at audio_aa, what the cascade
         # chain's FIRDecimator launches; the frame entry point's cases
         # after it are timed for the record
@@ -406,6 +475,18 @@ def kernel_cases(dev):
              geometry=tiling.for_tensor(frames[0], n_out, tpad, DECIM, 4),
              nbytes=8 * (tpad - 1 + BLOCK) + 4 * tpad + 8 * n_out,
              flops=4 * tpad * n_out),
+        dict(name="fir_decimate_frame",
+             shape=f"FasTrak sync f32, decim 1, {tpad_sync} taps",
+             kernel=lambda i: fd.fir_decimate_block(
+                 sync_xs[i % len(sync_xs)], sync_tail, h_sync, 1),
+             plain=lambda i: fd.fir_decimate_block_plain(
+                 sync_tail, sync_xs[i % len(sync_xs)], h_sync, 1),
+             library=lambda i: torch.nn.functional.conv1d(
+                 sync_frames[i % len(sync_frames)][None, None],
+                 h_sync[None, None]),
+             geometry=tiling.for_tensor(sync_xs[0], BLOCK, tpad_sync, 1, 4),
+             nbytes=4 * (tpad_sync - 1 + BLOCK) + 4 * tpad_sync + 4 * BLOCK,
+             flops=2 * tpad_sync * BLOCK),
         bank_case(dev, gen, h_chan),
         fsm_case(dev, 3, 1, BLOCK, "burst path"),
         fsm_case(dev, 4, 64, 1 << 14, "decoder bank"),
@@ -413,6 +494,12 @@ def kernel_cases(dev):
                  FSM_SMOOTHED),
         fsm_case(dev, 6, 1, BLOCK, "forced miss", FSM_RAMP, ramp_block,
                  all_miss=True),
+        fastrak_case(dev, 7, 1, BLOCK, "FasTrak path", gap=FT_PATH_GAP),
+        fastrak_case(dev, 8, 64, 1 << 14, "decoder bank"),
+        fastrak_case(dev, 10, 1, BLOCK, "frames back to back", gap=(1, 200)),
+        fastrak_case(dev, 9, 1, BLOCK, "forced miss: sync held high",
+                     held=True),
+        vrr_case(dev),
     ]
 
 
@@ -446,6 +533,63 @@ def ramp_block(rng, rows, n):
     for d in range((-FSM_TOOTH_AT) % FSM_TOOTH, n - 6, FSM_TOOTH):
         x[:, d + 5:d + 7] = (0.1, 1.0)
     return x.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# FasTrak frames (also rehearsed on the CPU by tests/test_torch_misc.py)
+# ---------------------------------------------------------------------------
+
+FT_OS = 8               # samples a bit: 500 kbit/s at 4 Msamp/s
+# gaps between frames of the kernel case at the FasTrak path's density
+# (24 frames a 2^20-sample block)
+FT_PATH_GAP = (40000, 46000)
+FT_IDS = (0x12345678, 0xCAFEBABE, 0x0BADF00D)
+
+
+def fastrak_bits(tag_id: int, crc_ok: bool = True, word: int = 0xAAC,
+                 ptype: int = 0x0001) -> list:
+    """A FasTrak frame's 76 bits: sync word, type, ID, and the CRC16 that
+    leaves the decoder's CRC at 0 (``crc_ok``), else a wrong one."""
+    body = f"{ptype:016b}{tag_id:032b}"
+    crc = 0
+    for i in range(0, 48, 8):
+        crc = misc._crc16_ccitt_update(crc, int(body[i:i + 8], 2))
+    if not crc_ok:
+        crc ^= 0x5A5A
+    return [int(b) for b in f"{word:012b}{body}{crc:016b}"]
+
+
+def fastrak_rows(rng, rows, n, os_=FT_OS, gap=(1, 200)):
+    """[rows, n] float32 (metric, sync) rows for the FSM cases: frames of
+    +-1 bits held ``os_`` samples (noise 0.2 rms) after gaps of ``gap``
+    samples (-1 between them), the sync stream 5.0 at each frame's first
+    sample and 0 else;
+    IDs from FT_IDS in runs; one frame in 8 with a bad CRC, one in 10 with
+    a bad sync word, one in 12 with a bad type; a decoy sync (5.0) inside
+    one frame in 6 and in one gap in 5. A frame cut by the row's end
+    carries on where the next block would."""
+    metric = np.full((rows, n), -1.0, np.float32)  # idle: the off level
+    sync = np.zeros((rows, n), np.float32)
+    for r in range(rows):
+        p, f = int(rng.integers(0, gap[1])), 0
+        bits = []
+        while p < n:
+            bits = fastrak_bits(FT_IDS[(f // 3) % len(FT_IDS)],
+                                crc_ok=f % 8 != 5,
+                                word=0xAAC if f % 10 != 7 else 0xAAD,
+                                ptype=1 if f % 12 != 9 else 2)
+            wave = np.repeat(np.array(bits, np.float32) * 2 - 1, os_)
+            end = min(n, p + wave.size)
+            metric[r, p:end] = wave[:end - p]
+            sync[r, p] = 5.0
+            if f % 6 == 2 and p + 300 < n:
+                sync[r, p + 300] = 5.0
+            p = end + int(rng.integers(*gap))
+            if f % 5 == 1 and p - 2 < n and p - 2 > end:
+                sync[r, p - 2] = 5.0
+            f += 1
+        metric[r] += 0.2 * rng.standard_normal(n).astype(np.float32)
+    return metric, sync
 
 
 def fsm_case(dev, seed, rows, n, shape, config=FSM_CONFIG, block=fsm_block,
@@ -515,6 +659,132 @@ def fsm_case(dev, seed, rows, n, shape, config=FSM_CONFIG, block=fsm_block,
                 check=held, iters=10, plain_iters=1, library=None,
                 nbytes=12 * rows * n + 2 * 40 * rows + 4, flops=0,
                 after=repaired)
+
+
+def fastrak_case(dev, seed, rows, n, shape, os_=FT_OS, gap=(1, 200),
+                 held=False):
+    """The FasTrak FSM kernel on ``rows`` streams of ``n`` samples of
+    :func:`fastrak_rows` (``held``: the sync stream above the threshold
+    everywhere, so that nearly every guess of the speculative walk misses:
+    the kernel's worst case). The check walks two chained calls with the
+    kernel and the plain version and holds events, counts and the whole
+    state equal, and prints the chunks the kernel walked again. Its bytes:
+    metric and sync read once, events, counts and the state."""
+    rng = np.random.default_rng(seed)
+    metric, sync = fastrak_rows(rng, rows, 2 * n, os_, gap)
+    if held:
+        sync[:] = 5.0
+    xs = [(torch.from_numpy(np.ascontiguousarray(metric[:, c * n:(c + 1) * n]))
+           .to(dev), torch.from_numpy(np.ascontiguousarray(
+               sync[:, c * n:(c + 1) * n])).to(dev)) for c in range(2)]
+    st0 = {k: v.reshape(1).expand(rows).contiguous() for k, v in
+           FastrakDecoder(device=dev).init_state().items()}
+    thr = torch.ones(1, device=dev)
+    chunks = rows * -(-n // ff.CHUNK)
+    label = f"fastrak_fsm [{shape}]"
+
+    def chain(fn):
+        st, out, repairs = st0, [], []
+        for m, y in xs:
+            ev, c, st = fn(m, y, st, thr, os_)
+            out.append((ev, c, st))
+            repairs.append(ff.fastrak_fsm.last_repairs)
+        return out, repairs
+
+    def held_check():
+        (kern, repairs), (plain, _) = (chain(ff.fastrak_fsm),
+                                       chain(ff.fastrak_fsm_plain))
+        torch.cuda.synchronize()
+        print(f"{label}: repaired "
+              + " and ".join(str(int(r.sum())) for r in repairs)
+              + f" of {chunks} chunks in the two calls (chunk {ff.CHUNK}, "
+              f"warm {ff.WARM}); frames {[int(p[1].sum()) for p in plain]}")
+        for (ek, ck, sk), (ep, cp, sp) in zip(kern, plain):
+            check(same_bits(ek, ep) and torch.equal(ck.cpu(), cp.cpu())
+                  and all(torch.equal(sk[k].cpu(), sp[k].cpu()) for k in sp),
+                  f"{label} differs from its plain version")
+        if held:
+            check(all(int(r.sum()) >= 0.8 * (chunks - rows) for r in repairs),
+                  f"{label}: too few misses for the worst case")
+        else:
+            check(all(int(p[1].sum()) > 0 for p in plain),
+                  f"{label}: no frame passed")
+        return kern[-1][0], plain[-1][0]
+
+    def repaired():
+        return (f"repaired {int(ff.fastrak_fsm.last_repairs.sum())} of "
+                f"{chunks} chunks (chunk {ff.CHUNK}, warm {ff.WARM})")
+
+    return dict(name="fastrak_fsm", shape=f"{shape}, [{rows}, {n}]",
+                kernel=lambda i: ff.fastrak_fsm(*xs[i % 2], st0, thr,
+                                                os_)[0],
+                plain=lambda i: ff.fastrak_fsm_plain(*xs[i % 2], st0, thr,
+                                                     os_)[0],
+                check=held_check, iters=20, plain_iters=1, library=None,
+                nbytes=8 * rows * n + rows * (4 * 3 * 32 + 4 + 2 * 48) + 4,
+                flops=0, after=repaired)
+
+
+def vrr_case(dev):
+    """The ratio-stream resampler's kernel at the AM path's audio shape: a
+    float32 block of 2^16 at 64 kHz into 48 kHz (the ratio stream AM_RATIO
+    * (1 + 2e-4 sin)), capacity 2^17 + 1. The check chains two blocks
+    through the kernel and the plain version: counts, positions, flags and
+    tails equal, outputs within 1e-5 of the max. Its bytes: x and rr read
+    once, the capacity's outputs written once. The walk's own bound, its
+    outputs times one dependent step from shared memory (timed alone by
+    ``vrr_walk.chain_step_ns``), is printed beside it."""
+    n = BLOCK // AM_DECIM
+    blk = VariableRatioResampler(n, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    k = torch.arange(2 * n, dtype=torch.float64, device=dev)
+    rr = (AM_RATIO * (1 + 2e-4 * torch.sin(k * 0.001))).to(torch.float32)
+    xs = copies(lambda: torch.randn(n, generator=gen, device=dev), 12 * n)
+    st0 = blk.init_state()
+    full = torch.tensor(n, dtype=torch.int32, device=dev)
+    label = f"vrr_walk [{n} f32, capacity {blk.capacity}]"
+
+    def call(fn, x, r, st):
+        return fn(x, st["tail"], r, st["rr_tail"], st["q_int"],
+                  st["mu_frac"], full, blk.capacity, blk.taps_table)
+
+    def chain(fn):
+        st, out = st0, []
+        for c in range(2):
+            res = call(fn, xs[c], rr[c * n:(c + 1) * n], st)
+            out.append(res)
+            st = dict(tail=res[5], rr_tail=res[6], q_int=res[2],
+                      mu_frac=res[3])
+        return out
+
+    def held():
+        kern, plain = chain(vw.vrr_walk), chain(vw.vrr_walk_plain)
+        torch.cuda.synchronize()
+        for g, p in zip(kern, plain):
+            check(all(torch.equal(g[i].cpu(), p[i].cpu()) for i in range(1, 7)),
+                  f"{label}: counts, positions, flags or tails differ")
+        print(f"{label}: {int(kern[0][1])} and {int(kern[1][1])} outputs, "
+              "counts, q_int, mu_frac, flags and tails equal to the plain "
+              "version's")
+        return (torch.cat([g[0] for g in kern]),
+                torch.cat([p[0] for p in plain]))
+
+    def chain_bound():
+        step_ns = vw.chain_step_ns()
+        outs = int(call(vw.vrr_walk, xs[0], rr[:n], st0)[1])
+        return (f"the walk's chain: {outs} outputs x {step_ns:.3f} ns a "
+                f"dependent shared-memory step = {outs * step_ns / 1e6:.4f} "
+                "ms")
+
+    return dict(name="vrr_walk", shape=f"AM audio, {n} f32",
+                kernel=lambda i: call(vw.vrr_walk, xs[i % len(xs)], rr[:n],
+                                      st0)[0],
+                plain=lambda i: call(vw.vrr_walk_plain, xs[i % len(xs)],
+                                     rr[:n], st0)[0],
+                check=held, iters=50, plain_iters=3, library=None,
+                nbytes=8 * n + 4 * blk.capacity + 2 * 4 * 7 + 32,
+                flops=2 * NTAPS_MMSE * int(round(n / AM_RATIO)),
+                after=chain_bound)
 
 
 def bank_case(dev, gen, h_chan):
@@ -885,37 +1155,53 @@ def pump_phase(dev):
 # ---------------------------------------------------------------------------
 
 def one_block_graph(block):
-    """A Flowgraph of one block, so every path runs through a step."""
+    """A Flowgraph of one block, so every path runs through a step: inputs
+    ``iq`` (port 0), ``in1``, ``in2``...; outputs ``out``, ``out1``..."""
     fg = Flowgraph(block.name)
     fg.input("iq", block)
+    for p in range(1, block.n_in):
+        fg.input(f"in{p}", (block, p))
     fg.output("out", (block, 0))
     for p in range(1, block.n_out):
         fg.output(f"out{p}", (block, p))
     return fg
 
 
-def run_graph(fg, blocks, rate, control=None, abs_index=None):
-    """Steps of ``fg`` over ``blocks`` (into its one input port):
-    ``[{port: (data, count)}]``; ``control(params, b)`` runs before block
-    b. With ``abs_index`` the stream's absolute index starts there and
-    advances block by block (else each block starts at 0)."""
+def run_inputs(fg, feeds, rate, control=None, abs_index=None):
+    """Steps of ``fg`` over ``feeds`` (one dict of tensors by input a
+    step): ``[{port: (data, count)}]``, the output streams' flags ``[{port:
+    int}]`` and the states after every step. ``control(params, b)`` runs
+    before step b. With ``abs_index`` the stream's absolute index starts
+    there and advances step by step (else each step starts at 0)."""
     step = fg.compile().step
     states, params = fg.init_states(), fg.init_params()
-    port = next(iter(fg.in_ports))
+    first = next(iter(feeds[0].values()))
     meta = None if abs_index is None else StreamMeta.start(
-        rate, abs_index=abs_index, device=blocks[0].device)
-    outs = []
-    for b, x in enumerate(blocks):
+        rate, abs_index=abs_index, device=first.device)
+    outs, flags, after = [], [], []
+    for b, feed in enumerate(feeds):
         if control is not None:
             control(params, b)
-        states, o = step(states, params, {port: Stream.full(
-            x, meta=meta, sample_rate=rate)})
+        states, o = step(states, params, {
+            p: Stream.full(v, meta=meta, sample_rate=rate)
+            for p, v in feed.items()})
         outs.append({k: (v.data, v.count) for k, v in o.items()})
+        flags.append({k: v.meta.flags for k, v in o.items()})
+        after.append(states)
         if meta is not None:
-            meta = meta.advanced(x.shape[0])
-    if blocks[0].is_cuda:
+            meta = meta.advanced(first.shape[0])
+    if first.is_cuda:
         torch.cuda.synchronize()
-    return outs
+    flags = [{k: int(v) for k, v in f.items()} for f in flags]
+    return outs, flags, after
+
+
+def run_graph(fg, blocks, rate, control=None, abs_index=None):
+    """:func:`run_inputs` over ``blocks`` into ``fg``'s one input: the
+    outputs."""
+    port = next(iter(fg.in_ports))
+    return run_inputs(fg, [{port: x} for x in blocks], rate, control,
+                      abs_index)[0]
 
 
 def counted(what, kernels, n_blocks, fn):
@@ -952,15 +1238,17 @@ def close_spectra(got, want, scale, what):
 
 def graph_timer(fg, xs, rate, params=None, ports=None, bits_ports=()):
     """``run(steps)``: CUDA-event ms per step of ``fg`` over ``xs`` in
-    turn, the outputs ``ports`` (default every output) summed into a
+    turn (tensors into its one input, or dicts of tensors by input), the
+    outputs ``ports`` (default every output) summed into a
     checksum that must stay finite; ``bits_ports`` (event rows with
     bitcast fields, which may hold NaN patterns) are summed as their
     int32 bit patterns."""
     step = fg.compile().step
     params = fg.init_params() if params is None else params
     port = next(iter(fg.in_ports))
+    first = next(iter(xs[0].values())) if isinstance(xs[0], dict) else xs[0]
     carry = dict(states=fg.init_states(),
-                 acc=torch.zeros((), device=xs[0].device), i=0)
+                 acc=torch.zeros((), device=first.device), i=0)
 
     def run(steps):
         start = torch.cuda.Event(enable_timing=True)
@@ -968,8 +1256,9 @@ def graph_timer(fg, xs, rate, params=None, ports=None, bits_ports=()):
         start.record()
         for _ in range(steps):
             x = xs[carry["i"] % len(xs)]
-            states, o = step(carry["states"], params,
-                             {port: Stream.full(x, sample_rate=rate)})
+            feed = x if isinstance(x, dict) else {port: x}
+            states, o = step(carry["states"], params, {
+                p: Stream.full(v, sample_rate=rate) for p, v in feed.items()})
             acc = carry["acc"]
             for p in (o if ports is None else ports):
                 d = o[p].data
@@ -1524,6 +1813,417 @@ def burst_path(dev):
     return launches
 
 
+def to_cpu(feeds):
+    return [{p: v.cpu() for p, v in f.items()} for f in feeds]
+
+
+# ---------------------------------------------------------------------------
+# the AM receiver (apps/am_fft.py's graph) with a ratio-stream resampler
+# ---------------------------------------------------------------------------
+
+AM_FS = 1.024e6
+AM_DECIM = 16
+AM_STATION_HZ = 200e3
+AM_RATE = AM_FS / AM_DECIM          # 64 kHz into the resampler
+AUDIO_RATE = 48e3
+AM_RATIO = AM_RATE / AUDIO_RATE     # input samples an output sample
+AM_FFT = 1024
+AM_PATH_KERNELS = ("xlating_fir_block", "vrr_walk")
+
+
+def am_scene(dev):
+    """8 blocks of 2^20 samples at 1.024 Msamp/s: an AM station at
+    +AM_STATION_HZ, 80% depth on a TONE_HZ tone, with complex noise; and
+    the ratio stream of a sound card disciplined to 48 kHz, AM_RATIO * (1
+    + 2e-4 sin) with a 2 s period, 2^16 samples a block."""
+    n = N_BLOCKS * BLOCK
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    msg = 0.8 * torch.sin(2 * np.pi * torch.frac(t * (TONE_HZ / AM_FS)))
+    carrier = torch.polar(0.5 * (1 + msg), 2 * np.pi * torch.frac(
+        t * (AM_STATION_HZ / AM_FS)))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    iq = (carrier.to(torch.complex64) + 0.005 * torch.view_as_complex(
+        torch.randn(n, 2, generator=gen, device=dev)))
+    m = BLOCK // AM_DECIM
+    k = torch.arange(N_BLOCKS * m, dtype=torch.float64, device=dev)
+    rr = (AM_RATIO * (1 + 2e-4 * torch.sin(2 * np.pi * k / (2 * AM_RATE)))
+          ).to(torch.float32)
+    return [dict(iq=iq[b * BLOCK:(b + 1) * BLOCK], ratio=rr[b * m:(b + 1) * m])
+            for b in range(N_BLOCKS)]
+
+
+def am_channel_taps():
+    """The AM channel's low-pass: 493 taps, 10 kHz cut-off, 5 kHz wide."""
+    return fir.low_pass_taps(1.0, AM_FS, 10e3, 5e3)
+
+
+def am_graph(device, per_input=2.0, channel=False):
+    """channel (B1 at decim 16, 493 taps) -> AMDemod -> the ratio-stream
+    resampler (kernel K2); Vectorize -> PowerSpectrum off the channel.
+    With ``channel`` the channel's output is an output too."""
+    fg = Flowgraph("am")
+    chan = FreqXlatingFIRDecimator(
+        am_channel_taps(), AM_DECIM, AM_STATION_HZ,
+        AM_FS, name="channel", device=device)
+    am = AMDemod(1e-3, 2.0, name="am", device=device)
+    rs = VariableRatioResampler(BLOCK // AM_DECIM, per_input,
+                                dtype=torch.float32, nominal_ratio=AM_RATIO,
+                                name="audio_rs", device=device)
+    framer = Vectorize(AM_FFT, name="framer")
+    psd = PowerSpectrum(AM_FFT, "blackmanharris", 0.25, name="psd",
+                        device=device)
+    fg.input("iq", chan)
+    fg.input("ratio", (rs, 1))
+    fg.chain(chan, am, rs)
+    fg.chain(chan, framer, psd)
+    fg.output("audio", rs)
+    fg.output("spectra", psd)
+    if channel:
+        fg.output("channel", chan)
+    return fg
+
+
+def am_path(dev):
+    """The AM receiver over 8 blocks, counted like phase 3: the tone back
+    in the 48 kHz audio, the station in its spectrum bin, blocks 0-1
+    against the port on the CPU (the channel, B1's output, within 1e-5 of
+    its max; audio counts and the resampler's q_int and mu_frac equal,
+    audio within 1e-5 of the max), too small an output
+    budget raising BUFFER_OVERRUN on the card as on the CPU; then timed and
+    profiled."""
+    feeds = am_scene(dev)
+    (outs, flags, states), launches = counted(
+        "AM path", AM_PATH_KERNELS, N_BLOCKS,
+        lambda: run_inputs(am_graph(dev, channel=True), feeds, AM_FS))
+    check(not any(f["audio"] for f in flags), "AM path: an overrun flag")
+    audio = torch.cat(valid(outs, "audio")[1:]).cpu().numpy()
+    check(bool(np.isfinite(audio).all()), "AM audio finite")
+    f, sinad = tone_sinad(audio, AUDIO_RATE)
+    n_audio = sum(int(o["audio"][1]) for o in outs)
+    spec = outs[-1]["spectra"][0][: int(outs[-1]["spectra"][1])]
+    peak = int(spec.mean(dim=0).argmax())
+    print(f"AM path: {n_audio} audio samples from {N_BLOCKS * BLOCK} IQ "
+          f"({n_audio / (N_BLOCKS * BLOCK / AM_FS):.1f} a second); tone "
+          f"{f:.2f} Hz, SINAD {sinad:.2f} dB; station at spectrum bin "
+          f"{peak} of {AM_FFT} (carrier at DC: {AM_FFT // 2})")
+    check(abs(f - TONE_HZ) < 5.0, "AM tone frequency")
+    check(sinad > 30.0, "AM tone SINAD")
+    check(peak == AM_FFT // 2, "AM station not in its spectrum bin")
+    cpu, cflags, cstates = run_inputs(am_graph("cpu", channel=True),
+                                      to_cpu(feeds[:2]), AM_FS)
+    worst, worst_chan = 0.0, 0.0
+    for b in range(2):
+        gz, cz = outs[b]["channel"][0].cpu(), cpu[b]["channel"][0]
+        err = float((gz - cz).abs().max() / cz.abs().max())
+        worst_chan = max(worst_chan, err)
+        check(gz.shape == cz.shape and err <= 1e-5,
+              f"AM channel block {b}: card and CPU differ {err:.3e}")
+        (gy, gc), (cy, cc) = outs[b]["audio"], cpu[b]["audio"]
+        check(int(gc) == int(cc), "AM audio counts, card and CPU")
+        for k in ("q_int", "mu_frac"):
+            check(int(states[b]["audio_rs"][k]) == int(cstates[b]["audio_rs"][k]),
+                  f"AM resampler {k}, card and CPU")
+        err = float((gy.cpu() - cy).abs().max() / cy.abs().max())
+        worst = max(worst, err)
+        check(err <= 1e-5, f"AM audio block {b}: card and CPU differ {err:.3e}")
+        check(flags[b]["audio"] == cflags[b]["audio"], "AM flags")
+    print(f"AM path blocks 0-1, card vs CPU: channel within "
+          f"{worst_chan:.3e} of the max (bar 1e-5); audio counts, q_int, "
+          f"mu_frac equal; audio within {worst:.3e} of the max (bar 1e-5)")
+    over = [run_inputs(am_graph(d, per_input=0.5), fs, AM_FS)
+            for d, fs in ((dev, feeds[:1]), ("cpu", to_cpu(feeds[:1])))]
+    (go, gf, gs), (co, cf, cs) = over
+    check(gf[0]["audio"] & stream_flags.BUFFER_OVERRUN
+          and gf[0]["audio"] == cf[0]["audio"]
+          and int(go[0]["audio"][1]) == int(co[0]["audio"][1])
+          and int(gs[0]["audio_rs"]["q_int"]) == int(cs[0]["audio_rs"]["q_int"]),
+          "AM overrun: the card and the CPU differ or no flag")
+    print(f"AM path, 0.5 outputs an input: BUFFER_OVERRUN on the card and "
+          f"the CPU, {int(go[0]['audio'][1])} outputs each")
+    time_path("am", am_graph(dev), feeds, AM_FS, BLOCK, "Msamp/s",
+              kernels=("vrr_kernel",))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the FasTrak decoder
+# ---------------------------------------------------------------------------
+
+FT_FS = 4e6
+FT_OFF, FT_ON = 0.4, 1.0            # the tag's two envelope levels
+FT_DELAY = 12 * FT_OS - 1 - FT_OS // 2   # sync peak -> the first bit's middle
+FT_SYNC_THR = 0.75 * (FT_ON - FT_OFF) / 2   # of the matched filter's peak
+FT_FRAMES = 24                       # a block
+FASTRAK_PATH_KERNELS = ("fastrak_fsm", "fir_decimate_frame")
+# the device functions of the FasTrak kernel's four passes
+FASTRAK_PASSES = ("speculate_kernel", "chain_kernel", "apply_kernel",
+                  "last_row_kernel")
+
+
+def fastrak_scene(dev):
+    """(iq [8 * 2^20] complex64 at 4 Msamp/s, the passing (id, count)
+    sequence): a tag's OOK replies in noise, FT_FRAMES frames a block (its
+    envelope FT_ON for a 1 bit and FT_OFF for a 0 bit and between
+    replies, a random carrier phase a frame); IDs of FT_IDS in runs, so
+    that the repeat count climbs; one frame with a bad CRC, a near-sync
+    decoy (the sync word with its last bit flipped) alone, and one frame
+    across the boundary of blocks 3 and 4."""
+    rng = np.random.default_rng(23)
+    n = N_BLOCKS * BLOCK
+    env = np.full(n, FT_OFF, np.float32)
+    phase = np.zeros(n, np.float32)
+    starts = [b * BLOCK + 20000 + 43000 * k for b in range(N_BLOCKS)
+              for k in range(FT_FRAMES)] + [4 * BLOCK - 300]
+    starts.sort()
+    run_id, left, expect, last, count = 0, 0, [], None, 0
+    for i, p in enumerate(starts):
+        if left == 0:
+            run_id, left = (run_id + 1) % len(FT_IDS), int(rng.integers(1, 6))
+        left -= 1
+        ok = i != 50
+        bits = fastrak_bits(FT_IDS[run_id], crc_ok=ok)
+        wave = np.repeat(np.where(np.array(bits) == 1, FT_ON, FT_OFF), FT_OS)
+        env[p:p + wave.size] = wave
+        phase[p:p + wave.size] = rng.uniform(0, 2 * np.pi)
+        if ok:
+            count = count + 1 if FT_IDS[run_id] == last else 1
+            last = FT_IDS[run_id]
+            expect.append((last, count))
+    decoy = np.repeat(np.where(np.array(fastrak_bits(0, word=0xAAD)[:12])
+                               == 1, FT_ON, FT_OFF), FT_OS)
+    env[BLOCK + 41000:BLOCK + 41000 + decoy.size] = decoy
+    x = env * np.exp(1j * phase) + (0.05 / np.sqrt(2)) * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return torch.from_numpy(x.astype(np.complex64)).to(dev), expect
+
+
+def fastrak_sync_taps():
+    """The matched filter of the os-8 sync word's waveform (+-1 a bit),
+    reversed and divided by its 96 taps."""
+    wave = np.repeat(np.array(fastrak_bits(0)[:12], np.float32) * 2 - 1,
+                     FT_OS)
+    return wave[::-1] / wave.size
+
+
+def fastrak_graph(device):
+    """|iq| - the level midway between the tag's two (the bit metric); a
+    matched filter of the os-8 sync word's waveform (FIRDecimator, B3 at
+    decim 1) as the sync stream; VariableDelay aligning the metric so that
+    bits are sampled mid-bit; FastrakDecoder on kernel K1."""
+    fg = Flowgraph("fastrak")
+    mag = basic.complex_to_mag()
+    level = basic.add_const(-(FT_ON + FT_OFF) / 2)
+    match = FIRDecimator(fastrak_sync_taps(), 1, dtype=torch.float32,
+                         name="match", device=device)
+    align = basic.VariableDelay(128, FT_DELAY, dtype=torch.float32,
+                                name="align", device=device)
+    dec = FastrakDecoder(FT_SYNC_THR, FT_OS, name="fastrak", device=device)
+    fg.input("iq", mag)
+    fg.chain(mag, level, match)
+    fg.chain(level, align)
+    fg.connect(align, (dec, 0))
+    fg.connect(match, (dec, 1))
+    fg.output("events", dec)
+    fg.output("metric", align)
+    fg.output("sync", match)
+    return fg
+
+
+def fastrak_ids(outs):
+    return [(int(r[0]) << 16 | int(r[1]), int(r[2]))
+            for o in outs for r in o["events"][0][: int(o["events"][1])].cpu()]
+
+
+def fastrak_path(dev):
+    """The FasTrak path over 8 blocks, counted like phase 3: every passing
+    ID with its repeat count, the bad CRC and the decoy not; K1's events
+    and whole state over blocks 0-1 bit for bit its plain version's on the
+    same card-computed metric and sync; the path on the CPU over blocks
+    0-1 the same IDs and counts, and its metric and sync (B3's output)
+    within 1e-5 of their max; then timed and profiled."""
+    iq, expect = fastrak_scene(dev)
+    feeds = [dict(iq=iq[b * BLOCK:(b + 1) * BLOCK]) for b in range(N_BLOCKS)]
+    (outs, _, states), launches = counted(
+        "FasTrak path", FASTRAK_PATH_KERNELS, N_BLOCKS,
+        lambda: run_inputs(fastrak_graph(dev), feeds, FT_FS))
+    got = fastrak_ids(outs)
+    print(f"FasTrak path: {len(got)} IDs over {N_BLOCKS} blocks (planted "
+          f"{len(expect)} passing, 1 bad CRC, 1 decoy); counts "
+          f"{[c for _, c in got[:12]]} ...; events a block "
+          f"{[int(o['events'][1]) for o in outs]}")
+    check(got == expect, "FasTrak IDs and counts are not the planted ones")
+    st = {k: v.reshape(1) for k, v in FastrakDecoder(
+        device="cpu").init_state().items()}
+    for b in range(2):
+        m = outs[b]["metric"][0].reshape(1, -1).cpu()
+        y = outs[b]["sync"][0].reshape(1, -1).cpu()
+        ev, c, st = misc.fastrak_fsm_plain(m, y, st, torch.tensor([FT_SYNC_THR]),
+                                           FT_OS)
+        check(same_bits(outs[b]["events"][0], ev[0])
+              and int(outs[b]["events"][1]) == int(c[0]),
+              f"FasTrak block {b}: K1's events differ from its plain version")
+        card = states[b]["fastrak"]
+        check(all(torch.equal(card[k].cpu().reshape(1), st[k]) for k in st),
+              f"FasTrak block {b}: K1's state differs from its plain version")
+    cpu, _, _ = run_inputs(fastrak_graph("cpu"), to_cpu(feeds[:2]), FT_FS)
+    check(fastrak_ids(cpu) == fastrak_ids(outs[:2]),
+          "FasTrak path on the CPU: other IDs or counts")
+    worst = {}
+    for port in ("metric", "sync"):
+        for b in range(2):
+            g, c = outs[b][port][0].cpu(), cpu[b][port][0]
+            err = float((g - c).abs().max() / c.abs().max())
+            worst[port] = max(worst.get(port, 0.0), err)
+            check(g.shape == c.shape and err <= 1e-5,
+                  f"FasTrak {port} block {b}: card and CPU differ {err:.3e}")
+    print(f"FasTrak path blocks 0-1: K1's events and state bit-equal to its "
+          f"plain version on the card's metric and sync; the CPU path finds "
+          f"the same {len(fastrak_ids(cpu))} IDs and counts; card vs CPU "
+          f"metric within {worst['metric']:.3e}, sync within "
+          f"{worst['sync']:.3e} of the max (bar 1e-5)")
+    time_path("fastrak", fastrak_graph(dev), feeds, FT_FS, BLOCK, "Msamp/s",
+              kernels=FASTRAK_PASSES)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the small blocks of ops/basic.py and ops/misc.py
+# ---------------------------------------------------------------------------
+
+def small_cases(gen):
+    """(label, factory(device) -> block, inputs per block (numpy), relative
+    bar or None for bit-equal, control(params, b) or None)."""
+    n = BLOCK
+
+    def c64(*shape):
+        return (gen.standard_normal(shape) + 1j * gen.standard_normal(shape)
+                ).astype(np.complex64)
+
+    def f32(*shape):
+        return gen.standard_normal(shape).astype(np.float32)
+
+    def blocks(make, k=2):
+        return [make() for _ in range(k)]
+
+    def delay_control(params, b):
+        params["align"]["delay"].fill_((100, 3000, 5)[b])
+
+    counter = np.arange(3 * n, dtype=np.float32)
+    counter[n + 5000:] += 7.0                       # a jump in block 1
+    marks = [(np.zeros(n, np.float32), np.zeros(n, np.float32))
+             for _ in range(2)]
+    for e, o in marks:
+        e[gen.integers(0, n, 40)] = 1.0
+        o[gen.integers(0, n, 40)] = 1.0
+    bits = gen.integers(0, 2, (2, n)).astype(np.uint8)
+    return [
+        ("conjugate", lambda d: basic.conjugate(), blocks(lambda: (c64(n),)),
+         None, None),
+        ("complex_to_mag", lambda d: basic.complex_to_mag(),
+         blocks(lambda: (c64(n),)), 1e-6, None),
+        ("complex_to_mag_squared", lambda d: basic.complex_to_mag_squared(),
+         blocks(lambda: (c64(n),)), None, None),
+        ("complex_to_arg", lambda d: basic.complex_to_arg(),
+         blocks(lambda: (c64(n),)), 1e-6, None),
+        ("real_part", lambda d: basic.real_part(), blocks(lambda: (c64(n),)),
+         None, None),
+        ("imag_part", lambda d: basic.imag_part(), blocks(lambda: (c64(n),)),
+         None, None),
+        ("multiply_const", lambda d: basic.multiply_const(1.5),
+         blocks(lambda: (f32(n),)), None, None),
+        ("add_const", lambda d: basic.add_const(-0.7),
+         blocks(lambda: (f32(n),)), None, None),
+        ("multiply", lambda d: basic.multiply(),
+         blocks(lambda: (f32(n), f32(n))), None, None),
+        ("add", lambda d: basic.add(), blocks(lambda: (f32(n), f32(n))),
+         None, None),
+        ("float_to_complex", lambda d: basic.float_to_complex(),
+         blocks(lambda: (f32(n), f32(n))), None, None),
+        ("uchar_iq_to_complex (2^21 RTL bytes)",
+         lambda d: basic.uchar_iq_to_complex(),
+         blocks(lambda: (gen.integers(0, 256, 2 * n).astype(np.uint8),)),
+         None, None),
+        ("complex_to_ishort", lambda d: basic.complex_to_ishort(),
+         blocks(lambda: (0.3 * c64(n),)), None, None),
+        ("ishort_to_complex",
+         lambda d: basic.ishort_to_complex(),
+         blocks(lambda: (gen.integers(-32768, 32768, 2 * n)
+                         .astype(np.int16),)), None, None),
+        ("PowCC", lambda d: basic.PowCC(2.0, 0.5, device=d),
+         blocks(lambda: (c64(n),)), 1e-6, None),
+        ("SwapIQ", lambda d: basic.SwapIQ(device=d),
+         blocks(lambda: (c64(n),)), None, None),
+        ("VariableDelay, 100 -> 3000 -> 5",
+         lambda d: basic.VariableDelay(4096, 100, name="align", device=d),
+         blocks(lambda: (c64(n),), 3), None, delay_control),
+        ("KeepOneInN(1000)",
+         lambda d: basic.KeepOneInN(1000, n, device=d),
+         blocks(lambda: (c64(n),), 3), None, None),
+        ("UnpackedToPacked", lambda d: basic.UnpackedToPacked(device=d),
+         [(b,) for b in bits], None, None),
+        ("PackedToUnpacked", lambda d: basic.PackedToUnpacked(False,
+                                                              device=d),
+         [(b,) for b in bits], None, None),
+        ("Hysteresis", lambda d: basic.Hysteresis(-0.5, 0.5, device=d),
+         blocks(lambda: (np.repeat(gen.uniform(-1.5, 1.5, n // 16), 16)
+                         .astype(np.float32),)), None, None),
+        ("MatrixInterleaver(4, 8)", lambda d: misc.MatrixInterleaver(4, 8),
+         blocks(lambda: (c64(n // 4, 4),)), None, None),
+        ("TestCounter", lambda d: misc.TestCounter(name="counter", device=d),
+         [(counter[b * n:(b + 1) * n],) for b in range(3)], None, None),
+        ("SwapFF", lambda d: misc.SwapFF(device=d), blocks(lambda: (f32(n),)),
+         None, None),
+        ("FieldTracker", lambda d: misc.FieldTracker(device=d),
+         [(f32(n), e, o) for e, o in marks], None, None),
+        ("BlockStatus", lambda d: misc.BlockStatus(n + 1000, device=d),
+         blocks(lambda: (f32(n),), 3), None, None),
+    ]
+
+
+def small_blocks_phase(dev):
+    """Each block of ops/basic.py and ops/misc.py in a one-block graph on
+    the card over 2-3 blocks of 2^20 samples, against the same graph on the
+    CPU: counts, outputs (bit for bit, or within the JAX tests' 1e-6 of
+    the max where libm rounding may differ) and the final state."""
+    reset_launches()
+    gen = np.random.default_rng(19)
+    worst = {}
+    for label, make, ins, rel, control in small_cases(gen):
+        runs = []
+        for d in (dev, "cpu"):
+            blk = make(d)
+            feeds = [{("iq" if p == 0 else f"in{p}"): torch.from_numpy(a).to(d)
+                      for p, a in enumerate(b)} for b in ins]
+            runs.append(run_inputs(one_block_graph(blk), feeds, 1.0,
+                                   control))
+        (go, gf, gs), (co, cf, cs) = runs
+        err = 0.0
+        for g, c in zip(go, co):
+            for port, (gd, gc) in g.items():
+                cd, cc = c[port]
+                check(int(gc) == int(cc), f"{label} {port} counts")
+                if rel is None:
+                    check(same_bits(gd, cd), f"{label} {port}: card and CPU "
+                          "differ")
+                else:
+                    e = float((gd.cpu() - cd).abs().max() / cd.abs().max())
+                    err = max(err, e)
+                    check(e <= rel, f"{label} {port}: {e:.3e} of the max")
+        check(gf == cf, f"{label}: flags")
+        # one block a graph, auto-named anew in each
+        for gst, cst in zip(gs[-1].values(), cs[-1].values()):
+            for k, v in (gst or {}).items():
+                check(same_bits(v, cst[k]), f"{label} state {k}")
+        worst[label] = err
+    launches = launch_counts()
+    check(not any(launches.values()), f"small blocks launched {launches}")
+    print(f"small blocks, card vs CPU ({len(worst)} blocks, 2^20-sample "
+          "blocks): bit-equal "
+          + ", ".join(k for k, e in worst.items() if e == 0.0)
+          + "; within 1e-6 of the max: "
+          + ", ".join(f"{k} {e:.2e}" for k, e in worst.items() if e))
+
+
 def profile_chain(run, step_ms: float, label: str, kernels=()):
     """Kernel time per step and by name, from torch.profiler over 5
     steps. The busy share is that kernel time over ``step_ms``, the
@@ -1653,6 +2353,9 @@ def main() -> int:
     burst_launches = burst_path(dev)
     for name in BURST_PATH_KERNELS:
         launches[name] = burst_launches[name]
+    launches["vrr_walk"] = am_path(dev)["vrr_walk"]
+    launches["fastrak_fsm"] = fastrak_path(dev)["fastrak_fsm"]
+    small_blocks_phase(dev)
 
     table = []
     for r in rows:

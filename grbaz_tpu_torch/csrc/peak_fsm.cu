@@ -79,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "spec_fsm.cuh"
+
 // the FSM's constants, passed by value from ctypes (ops/cuda/peak_fsm.py);
 // outside the unnamed namespace so that the C entry point keeps external
 // linkage
@@ -94,8 +96,9 @@ struct PeakFsmConfig {
 
 namespace {
 
+using namespace spec_fsm;
+
 constexpr int kWalkers = 32;  // chunks (threads) of a pass-1 block
-constexpr unsigned kAll = 0xffffffffu;
 
 // chunk record rows: floats, then ints
 enum { kGAve, kGPrev, kGFirst, kGPeak, kEAve, kEPrev, kEFirst, kEPeak };
@@ -106,14 +109,6 @@ enum { kGRc, kGPa, kGLc, kERc, kEPa, kELc, kELast, kFlags, kConf, kBefore,
 // the number of emissions from bit 3 on. Pass 2 writes kConf (1 where
 // confirmed, 0 where walked again) and kBefore (the last emission before
 // a confirmed chunk) for pass 3.
-
-__device__ __forceinline__ int wadd(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
-
-__device__ __forceinline__ int wsub(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
-}
 
 struct St {
   float ave, prev, first, peak;
@@ -341,40 +336,6 @@ __device__ __forceinline__ bool equivalent(const St& g, const St& s) {
   return core & (!g.rising | rise);
 }
 
-__device__ __forceinline__ St shfl_st(const St& v, int src) {
-  St r;
-  r.ave = __shfl_sync(kAll, v.ave, src);
-  r.prev = __shfl_sync(kAll, v.prev, src);
-  r.first = __shfl_sync(kAll, v.first, src);
-  r.peak = __shfl_sync(kAll, v.peak, src);
-  r.rising = __shfl_sync(kAll, static_cast<int>(v.rising), src) != 0;
-  r.rc = __shfl_sync(kAll, v.rc, src);
-  r.pa = __shfl_sync(kAll, v.pa, src);
-  r.lc = __shfl_sync(kAll, v.lc, src);
-  return r;
-}
-
-__device__ __forceinline__ St shfl_up_st(const St& v) {
-  St r;
-  r.ave = __shfl_up_sync(kAll, v.ave, 1);
-  r.prev = __shfl_up_sync(kAll, v.prev, 1);
-  r.first = __shfl_up_sync(kAll, v.first, 1);
-  r.peak = __shfl_up_sync(kAll, v.peak, 1);
-  r.rising = __shfl_up_sync(kAll, static_cast<int>(v.rising), 1) != 0;
-  r.rc = __shfl_up_sync(kAll, v.rc, 1);
-  r.pa = __shfl_up_sync(kAll, v.pa, 1);
-  r.lc = __shfl_up_sync(kAll, v.lc, 1);
-  return r;
-}
-
-// lanes lo..hi-1 of a warp
-__device__ __forceinline__ unsigned lanes(int lo, int hi) {
-  const unsigned below_hi = hi >= 32 ? kAll : (1u << hi) - 1u;
-  return below_hi & ~((1u << lo) - 1u);
-}
-
-__device__ __forceinline__ int top_lane(unsigned m) { return 31 - __clz(m); }
-
 __global__ void __launch_bounds__(32)
     chain_kernel(const float* __restrict__ x, int n,
                  const float* __restrict__ thr,
@@ -416,7 +377,7 @@ __global__ void __launch_bounds__(32)
     const int k = w + lane;
     const int nvalid = min(32, K - w);
     const bool valid = lane < nvalid;
-    const St pred = shfl_up_st(cur.e);  // the recorded end of chunk k-1
+    const St pred = from_lane_below(cur.e);  // the recorded end of chunk k-1
     const int ne = valid ? cur.flags >> 3 : 0;
     const bool fresh = (cur.flags >> 2) & 1;
     const bool pred_ok = equivalent(cur.g, pred);
@@ -431,7 +392,7 @@ __global__ void __launch_bounds__(32)
       const unsigned emitted = __ballot_sync(kAll, mine & (ne > 0));
       const unsigned before = emitted & ((1u << lane) - 1u);
       const int lb_lane =
-          __shfl_sync(kAll, cur.last, before ? top_lane(before) : 0);
+          from_lane(cur.last, before ? top_lane(before) : 0);
       if (mine) {
         ch.rec_i[kConf * kt + row * K + k] = 1;
         ch.rec_i[kBefore * kt + row * K + k] = before ? lb_lane : last;
@@ -439,14 +400,14 @@ __global__ void __launch_bounds__(32)
       if (f > lo) {
         // carry the true state past the confirmed chunks
         const int L = f - 1;
-        const St end = shfl_st(cur.e, L);
-        if (emitted) last = __shfl_sync(kAll, cur.last, top_lane(emitted));
+        const St end = from_lane(cur.e, L);
+        if (emitted) last = from_lane(cur.last, top_lane(emitted));
         const unsigned fr = __ballot_sync(kAll, mine & fresh);
         const int h = fr ? top_lane(fr) : lo - 1;
         const int adv = (mine & (lane > h)) ? wsub(cur.e.pa, cur.g.pa) : 0;
         const int aged = static_cast<int>(
             __reduce_add_sync(kAll, static_cast<unsigned>(adv)));
-        const St hs = shfl_st(cur.e, fr ? h : 0);
+        const St hs = from_lane(cur.e, fr ? h : 0);
         if (fr) {
           S.first = hs.first;
           S.peak = hs.peak;
@@ -482,8 +443,8 @@ __global__ void __launch_bounds__(32)
           }
         }
         if (lane == 0) ch.rec_i[kConf * kt + row * K + w + f] = 0;
-        S = shfl_st(S, 0);
-        last = __shfl_sync(kAll, last, 0);
+        S = from_lane(S, 0);
+        last = from_lane(last, 0);
         ++nrep;
         lo = f + 1;
       } else {
@@ -531,16 +492,6 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-// dynamic shared memory above 48 KB is opted into on every launch that
-// needs it
-template <typename Kernel>
-cudaError_t fit_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 }  // namespace
 
 extern "C" int peak_fsm(const float* x, int n, int rows, const float* thr,
@@ -553,7 +504,6 @@ extern "C" int peak_fsm(const float* x, int n, int rows, const float* thr,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem1 = sizeof(float) * tile_words(chunk, warm);
   const size_t smem2 = sizeof(float) * chunk;  // < 48 KB when smem1 fits
-  if (smem1 > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Chunks ch;
   ch.chunk = chunk;
@@ -563,18 +513,19 @@ extern "C" int peak_fsm(const float* x, int n, int rows, const float* thr,
   ch.rec_f = rec_f;
   ch.rec_i = rec_i;
   ch.emits = static_cast<int2*>(emits);
-  cudaError_t e = fit_smem(speculate_kernel, smem1);
+  const cudaError_t e = fit_smem(speculate_kernel, smem1);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid1((ch.k + kWalkers - 1) / kWalkers, rows);
-  speculate_kernel<<<grid1, kWalkers, smem1, s>>>(x, n, thr, fin, iin, marks,
-                                                  idx_out, cfg, ch);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  chain_kernel<<<rows, 32, smem2, s>>>(x, n, thr, fin, iin, marks, idx_out,
-                                       fout, iout, cfg, ch, repairs);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid3((ch.k + 127) / 128, rows);
-  apply_kernel<<<grid3, 128, 0, s>>>(n, marks, idx_out, ch);
-  return static_cast<int>(cudaGetLastError());
+  return launch_passes(
+      [&] {
+        speculate_kernel<<<grid1, kWalkers, smem1, s>>>(
+            x, n, thr, fin, iin, marks, idx_out, cfg, ch);
+      },
+      [&] {
+        chain_kernel<<<rows, 32, smem2, s>>>(x, n, thr, fin, iin, marks,
+                                             idx_out, fout, iout, cfg, ch,
+                                             repairs);
+      },
+      [&] { apply_kernel<<<grid3, 128, 0, s>>>(n, marks, idx_out, ch); });
 }

@@ -27,7 +27,7 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 KERNEL_SOURCES = ("xlating_fir", "fir_decimate", "xlating_fir_ctaps",
-                  "peak_fsm", "channel_bank")
+                  "peak_fsm", "channel_bank", "fastrak_fsm", "vrr_walk")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

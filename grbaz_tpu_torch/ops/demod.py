@@ -1,5 +1,5 @@
-"""Demodulation blocks: FM quadrature demod, power squelch, deemphasis
-(port of ``grbaz_tpu/ops/demod.py``).
+"""Demodulation blocks: FM quadrature demod, power squelch, deemphasis,
+AM envelope demod (port of ``grbaz_tpu/ops/demod.py``).
 
 The only carried state is a scalar (previous sample / envelope), and the
 first-order recurrences run through :func:`.iir.onepole_scan`.
@@ -14,7 +14,8 @@ import torch
 from grbaz_tpu_torch.core.block import Block
 from grbaz_tpu_torch.core.device import resolve_device, scalar
 from grbaz_tpu_torch.core.stream import Stream
-from grbaz_tpu_torch.ops.iir import onepole_scan, state_at_count
+from grbaz_tpu_torch.ops.iir import (onepole_lowpass, onepole_scan,
+                                    state_at_count)
 
 
 def quadrature_demod(x: torch.Tensor, prev: torch.Tensor, gain) -> tuple:
@@ -114,3 +115,35 @@ class FMDeemphasis(Block):
         new_state = dict(y_prev=y_last,
                          x_prev=state_at_count(xd, x.count, state["x_prev"]))
         return new_state, (x.like(y, count=x.count),)
+
+
+class AMDemod(Block):
+    """AM envelope detector: |x| less its carrier (DC) level.
+
+    The carrier level is a one-pole lowpass of the envelope, subtracted so
+    that the output is the modulation alone (the demod stage of the AM
+    receive app). Count-prefix streams: the carried level is the value at
+    ``count-1`` and the invalid tail takes it.
+    """
+
+    def __init__(self, dc_alpha: float = 1e-3, gain: float = 1.0, name=None,
+                 device="cuda"):
+        super().__init__(name)
+        self.device = resolve_device(device)
+        self.alpha0 = float(dc_alpha)
+        self.gain0 = float(gain)
+
+    def init_state(self):
+        return dict(dc=scalar(0.0, torch.float32, self.device))
+
+    def init_params(self):
+        return dict(alpha=scalar(self.alpha0, torch.float32, self.device),
+                    gain=scalar(self.gain0, torch.float32, self.device))
+
+    def apply(self, state, params, x: Stream):
+        env = x.data.abs().to(torch.float32)
+        dc_raw = onepole_lowpass(env, params["alpha"], state["dc"])
+        dc_last = state_at_count(dc_raw, x.count, state["dc"])
+        dc = torch.where(x.valid_mask(), dc_raw, dc_last)
+        y = (env - dc) * params["gain"]
+        return dict(dc=dc_last), (x.like(y, count=x.count),)

@@ -50,6 +50,14 @@ def onepole_scan(b: torch.Tensor, a, y0: torch.Tensor) -> torch.Tensor:
     return y + a_pows * y0.to(torch.float32)
 
 
+def onepole_lowpass(x: torch.Tensor, alpha, y0: torch.Tensor) -> torch.Tensor:
+    """Single-pole lowpass ``y[k] = (1-alpha)*y[k-1] + alpha*x[k]``."""
+    if not isinstance(alpha, torch.Tensor):
+        alpha = torch.tensor(np.float32(alpha), device=x.device)
+    alpha = alpha.to(torch.float32)
+    return onepole_scan(x.to(torch.float32) * alpha, 1.0 - alpha, y0)
+
+
 def state_at_count(y: torch.Tensor, count: torch.Tensor,
                    fallback: torch.Tensor) -> torch.Tensor:
     """Carried state for a count-prefix stream: ``y[count-1]``, or the

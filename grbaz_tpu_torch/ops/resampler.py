@@ -2,13 +2,16 @@
 (port of ``grbaz_tpu/ops/resampler.py``).
 
 Each call processes a fixed-size input block and produces a statically
-bounded output block with a validity count. All output positions
-``p_k = mu0 + k*inc`` come from the exact fixed-point ramp of
+bounded output block with a validity count. At a fixed ratio all output
+positions ``p_k = mu0 + k*inc`` come from the exact fixed-point ramp of
 :mod:`.exact`, and each output interpolates with the 8-tap MMSE filter
-of its phase bin.
+of its phase bin. The ratio-stream mode (:class:`VariableRatioResampler`)
+reads its increment at the position it produces, so it walks its
+positions one by one (a CUDA kernel on the card, :func:`vrr_walk_plain`
+on the CPU).
 
-Two forms, as in the JAX package: the generic gather form
-(:func:`resample_block`) and the polyphase form for rational ratios p/q
+Two forms of the fixed ratio, as in the JAX package: the generic gather
+form (:func:`resample_block`) and the polyphase form for rational ratios p/q
 (:func:`resample_block_rational`), whose exactness guard falls back to
 the generic form. The JAX package picks between the two with a
 ``lax.cond``; a Python branch on a device boolean would wait for the
@@ -23,14 +26,16 @@ H100 gathers are cheap, and the rational form with its guard measured
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from fractions import Fraction
 
+import numpy as np
 import torch
 
 from grbaz_tpu_torch.core.block import Block
-from grbaz_tpu_torch.core.device import resolve_device, scalar, take
-from grbaz_tpu_torch.core.stream import Stream
+from grbaz_tpu_torch.core.device import U32_MASK, resolve_device, scalar, take
+from grbaz_tpu_torch.core.stream import Stream, stream_flags
 from grbaz_tpu_torch.ops import exact
 from grbaz_tpu_torch.ops.mmse import NSTEPS_LOG2, NTAPS, TAPS_TABLE
 
@@ -219,3 +224,122 @@ class FractionalResampler(Block):
         new_state = dict(tail=frame[-HIST:], mu_int=mu_int, mu_frac=mu_frac)
         out = x.like(y, count=n_out, rate_scale=1.0 / self.ratio0)
         return new_state, (out,)
+
+
+# ---------------------------------------------------------------------------
+# the ratio-stream mode
+# ---------------------------------------------------------------------------
+
+def vrr_walk_plain(x: torch.Tensor, tail: torch.Tensor, rr: torch.Tensor,
+                   rr_tail: torch.Tensor, q0: torch.Tensor,
+                   mu0: torch.Tensor, count: torch.Tensor, capacity: int,
+                   taps_table: torch.Tensor):
+    """The ratio-stream walk of :class:`VariableRatioResampler` over one
+    block ``x`` [n] (float32 or complex64) with the ratio stream ``rr``
+    [n], each after its carried tail of HIST samples, from the position
+    ``q0`` (int32) + ``mu0`` (uint32 in int64) in frame coordinates.
+
+    Output k interpolates ``frame[q_k : q_k + NTAPS]`` with the taps of
+    the phase bin of ``mu_k``; then ``inc = rr_frame[q_k]`` (q clipped to
+    the last window start), ``ip = floor(inc)``, ``fr = u32((inc - ip) *
+    2^32)`` in float32, and ``(q, mu) += (ip, fr)`` with mu's carry. The
+    walk stops at the first slot whose window does not fit the ``count``
+    valid samples; the slots after it are zeros.
+
+    The positions come from a host loop of Python integers over the 64-bit
+    position ``(q << 32) + mu``, the steps' float32 arithmetic vectorized
+    in numpy first; the interpolation is torch. Returns (y [capacity],
+    count int32, the new q int32 = max(q_end - n, 0), the new mu int64,
+    overran bool = q_end < n, the new tail, the new ratio tail) on ``x``'s
+    device."""
+    dev = x.device
+    n = x.shape[0]
+    frame = torch.cat([tail, x])
+    rr_frame = torch.cat([rr_tail, rr.to(torch.float32)])
+    hi = HIST + n - NTAPS
+    inc = rr_frame.detach().cpu().numpy().astype(np.float32)
+    ip = np.floor(inc)
+    fr = ((inc - ip) * np.float32(2.0 ** 32)).astype(np.int64)
+    steps = ((ip.astype(np.int64) << 32) + fr).tolist()
+    limit = min(int(count), n) + HIST
+    pos = (int(q0) << 32) + (int(mu0) & U32_MASK)
+    qs, mus = [], []
+    while len(qs) < capacity:
+        q = pos >> 32
+        if q + NTAPS > limit:
+            break
+        qc = min(max(q, 0), hi)
+        qs.append(qc)
+        mus.append(pos & U32_MASK)
+        pos += steps[qc]
+    k = len(qs)
+    q_end = pos >> 32
+    y = torch.zeros(capacity, dtype=frame.dtype, device=dev)
+    if k:
+        q_t = torch.tensor(qs, dtype=torch.int64, device=dev)
+        bins = exact.frac_to_phase_bin(torch.tensor(mus, dtype=torch.int64,
+                                                    device=dev), NSTEPS_LOG2)
+        win = q_t[:, None] + torch.arange(NTAPS, device=dev)[None]
+        taps = taps_table.to(dev)[bins]
+        y[:k] = _planes(frame, lambda pl: (pl[win] * taps).sum(dim=1))
+    return (y, torch.tensor(k, dtype=torch.int32, device=dev),
+            torch.tensor(max(q_end - n, 0), dtype=torch.int32, device=dev),
+            torch.tensor(pos & U32_MASK, dtype=torch.int64, device=dev),
+            torch.tensor(q_end < n, device=dev),
+            frame[frame.shape[0] - HIST:], rr_frame[rr_frame.shape[0] - HIST:])
+
+
+class VariableRatioResampler(Block):
+    """Ratio-stream mode of the fractional resampler: a second float
+    input carries the resampling ratio (input samples an output) for each
+    input sample. Each output interpolates at (q, mu), then ``inc =
+    rr[q]``, ``mu += inc``, ``q += floor``, in exact 32.32 fixed point.
+
+    The position is self-referential (the increment is read at the
+    current position), so there is no closed-form ramp: the walk runs on
+    the kernel ``csrc/vrr_walk.cu`` on the card and on
+    :func:`vrr_walk_plain` on the CPU (``ops/cuda/vrr_walk.py``).
+
+    Inputs: (signal float32 or complex64 [N], ratio float32 [N]); output:
+    ``capacity = ceil(N * max_outputs_per_input) + 1`` samples with a
+    data-dependent valid count. If the ratio stream wants more outputs
+    than the capacity, the block skips ahead to keep the position valid
+    and raises BUFFER_OVERRUN in the output stream's flags.
+    """
+
+    n_in = 2
+
+    def __init__(self, block_size: int, max_outputs_per_input: float = 2.0,
+                 dtype=torch.complex64, nominal_ratio: float | None = None,
+                 name=None, device="cuda"):
+        super().__init__(name)
+        self.device = resolve_device(device)
+        self.block_size = int(block_size)
+        self.dtype = dtype
+        self.capacity = int(math.ceil(block_size * max_outputs_per_input)) + 1
+        self.nominal_ratio = nominal_ratio  # for the output meta only
+        self.taps_table = torch.from_numpy(TAPS_TABLE).to(self.device)
+
+    def init_state(self):
+        return dict(
+            tail=torch.zeros(HIST, dtype=self.dtype, device=self.device),
+            rr_tail=torch.zeros(HIST, dtype=torch.float32,
+                                device=self.device),
+            q_int=scalar(HIST, torch.int32, self.device),
+            mu_frac=scalar(0, torch.int64, self.device))
+
+    def apply(self, state, params, x: Stream, rr: Stream):
+        from grbaz_tpu_torch.ops.cuda.vrr_walk import vrr_walk
+        n = self.block_size
+        if x.data.shape[0] != n or rr.data.shape[0] != n:
+            raise ValueError(f"{self.name}: expected blocks of {n}")
+        y, count, q, mu, overran, tail, rr_tail = vrr_walk(
+            x.data, state["tail"], rr.data.to(torch.float32),
+            state["rr_tail"], state["q_int"], state["mu_frac"], x.count,
+            self.capacity, self.taps_table)
+        rate_scale = (1.0 / self.nominal_ratio) if self.nominal_ratio \
+            else 1.0
+        out = x.like(y, count=count, rate_scale=rate_scale)
+        out.meta = dataclasses.replace(out.meta, flags=out.meta.flags | (
+            overran.to(torch.int64) * stream_flags.BUFFER_OVERRUN))
+        return dict(tail=tail, rr_tail=rr_tail, q_int=q, mu_frac=mu), (out,)

@@ -827,3 +827,183 @@ def test_burst_blocks_on_the_card_equal_the_cpu(dev, retrig):
                 assert torch.allclose(gs[k], cs[k], rtol=1e-5)
             else:
                 assert torch.equal(gs[k], cs[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the FasTrak FSM (csrc/fastrak_fsm.cu)
+# ---------------------------------------------------------------------------
+
+# (chunk, warm): the defaults, no warm-up at the smallest chunk (most
+# guesses miss), an odd warm-up, a warm-up shorter than a frame
+FT_CHUNKS = [(1024, 1280), (32, 0), (96, 5), (320, 100)]
+
+
+def _ft_state(rows, dev):
+    from grbaz_tpu_torch.ops.misc import FastrakDecoder
+    return {k: v.reshape(1).expand(rows).contiguous().to(dev)
+            for k, v in FastrakDecoder(device="cpu").init_state().items()}
+
+
+@pytest.mark.parametrize("chunk,warm", FT_CHUNKS)
+@pytest.mark.parametrize("rows,n,os_,gap", [(1, 20000, 8, (1, 200)),
+                                            (3, 4096, 2, (0, 3)),
+                                            (64, 1 << 14, 8, (1, 200)),
+                                            (2, 12345, 1, (0, 4))])
+def test_fastrak_kernel_matches_plain(dev, rows, n, os_, gap, chunk, warm):
+    """Events, counts and every state field bit for bit over two chained
+    calls: rows of independent streams, frames across the calls and the
+    chunks, more than 32 frames a call at oversampling 1, whatever the
+    chunk and warm-up."""
+    import chip_smoke
+    from grbaz_tpu_torch.ops.cuda import fastrak_fsm as ff
+    gen = np.random.default_rng(rows * n + os_)
+    metric, sync = chip_smoke.fastrak_rows(gen, rows, 2 * n, os_, gap)
+    st_p, st_k = _ft_state(rows, "cpu"), _ft_state(rows, dev)
+    thr = torch.tensor([1.0])
+    total = 0
+    for c in range(2):
+        m = torch.from_numpy(np.ascontiguousarray(metric[:, c * n:(c + 1) * n]))
+        y = torch.from_numpy(np.ascontiguousarray(sync[:, c * n:(c + 1) * n]))
+        ep, cp, st_p = ff.fastrak_fsm(m, y, st_p, thr, os_)
+        ek, ck, st_k = ff.fastrak_fsm(m.to(dev), y.to(dev), st_k,
+                                      thr.to(dev), os_, chunk=chunk,
+                                      warm=warm)
+        torch.cuda.synchronize()
+        assert torch.equal(ek.cpu().view(torch.int32), ep.view(torch.int32))
+        assert torch.equal(ck.cpu(), cp)
+        for k in st_p:
+            assert torch.equal(st_k[k].cpu(), st_p[k]), k
+        total += int(cp.sum())
+    assert total > 0
+
+
+@pytest.mark.parametrize("scene", ["held", "sparse"])
+@pytest.mark.parametrize("chunk,warm", [(32, 0), (64, 64), (256, 640)])
+def test_fastrak_kernel_repairs(dev, scene, chunk, warm):
+    """The chunks walked again are those the numpy model of the scheme
+    (tests/test_torch_misc.py) walks again: nearly all on a sync stream
+    held above the threshold at a short warm-up, none on sparse frames
+    once the warm-up spans a frame; outputs bit for bit the plain
+    version's."""
+    import chip_smoke
+    from grbaz_tpu_torch.ops.cuda import fastrak_fsm as ff
+    from test_torch_fsm_speculation import (ft_initial_state,
+                                            speculative_fastrak)
+    gen = np.random.default_rng(chunk + warm)
+    rows, n = 2, 4096
+    metric, sync = chip_smoke.fastrak_rows(gen, rows, n, 4)
+    if scene == "held":
+        sync = np.full_like(sync, 5.0)
+    thr = np.ones(rows, np.float32)
+    _, _, _, rep_m = speculative_fastrak(metric, sync, ft_initial_state(rows),
+                                         thr, 4, chunk, warm)
+    ek, ck, sk = ff.fastrak_fsm(torch.from_numpy(metric).to(dev),
+                                torch.from_numpy(sync).to(dev),
+                                _ft_state(rows, dev),
+                                torch.from_numpy(thr).to(dev), 4,
+                                chunk=chunk, warm=warm)
+    rep_k = ff.fastrak_fsm.last_repairs.cpu().numpy()
+    ep, cp, sp = ff.fastrak_fsm(torch.from_numpy(metric),
+                                torch.from_numpy(sync),
+                                _ft_state(rows, "cpu"),
+                                torch.from_numpy(thr), 4)
+    assert torch.equal(ek.cpu().view(torch.int32), ep.view(torch.int32))
+    assert torch.equal(ck.cpu(), cp)
+    for k in sp:
+        assert torch.equal(sk[k].cpu(), sp[k]), k
+    assert list(rep_k) == list(rep_m)
+    if scene == "sparse" and warm >= 4 * 76 + 1:
+        assert list(rep_k) == [0] * rows
+
+
+def test_fastrak_wrapper_counts_launches_and_rejects_bad_input(dev):
+    from grbaz_tpu_torch.ops.cuda import fastrak_fsm as ff
+    st = _ft_state(1, dev)
+    thr = torch.ones(1, device=dev)
+    x = torch.zeros(1, 100, device=dev)
+    before = ff.fastrak_fsm.launches
+    ff.fastrak_fsm(x, x, st, thr, 8)
+    assert ff.fastrak_fsm.launches == before + 1
+    with pytest.raises(TypeError):
+        ff.fastrak_fsm(x.double(), x, st, thr, 8)
+    with pytest.raises(ValueError):
+        ff.fastrak_fsm_kernel(x, x[:, :50].contiguous(), st, thr, 8)
+    with pytest.raises(ValueError):
+        ff.fastrak_fsm_kernel(x, x, st, thr.cpu(), 8)
+    with pytest.raises(ValueError):
+        ff.fastrak_fsm_kernel(x, x, st, thr, 0)
+    with pytest.raises(ValueError):
+        ff.fastrak_fsm_kernel(x, x, st, thr, 8, chunk=1000)
+    assert ff.fastrak_fsm.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the ratio-stream resampler's walk (csrc/vrr_walk.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+@pytest.mark.parametrize("n,ratio,per_input", [(1 << 16, 64 / 48, 2.0),
+                                               (5000, 0.7, 2.0),
+                                               (3000, 0.4, 1.5),
+                                               (40000, 3.1, 2.0),
+                                               (40000, 5000.0, 2.0)])
+def test_vrr_walk_kernel_matches_plain(dev, dtype, n, ratio, per_input):
+    """Counts, positions, overrun flags and tails equal and outputs within
+    1e-5 of the max over three chained blocks, the last partial; ratios
+    above and below 1 (an output buffer filling inside a tile), steps
+    longer than the kernel's tile, and too small a budget (overrun)."""
+    from grbaz_tpu_torch.ops.cuda import vrr_walk as vw
+    from grbaz_tpu_torch.ops.resampler import VariableRatioResampler
+    gen = np.random.default_rng(n)
+    x = gen.standard_normal((3 * n, 2)).astype(np.float32)
+    x = torch.from_numpy(np.ascontiguousarray(
+        x[:, 0] if dtype == torch.float32 else x[:, 0] + 1j * x[:, 1])
+    ).to(dtype)
+    rr = torch.from_numpy((ratio * (1 + 0.05 * np.sin(
+        np.arange(3 * n) * 0.003))).astype(np.float32))
+    blk = VariableRatioResampler(n, per_input, dtype=dtype, device="cpu")
+    st_p = blk.init_state()
+    st_k = {k: v.to(dev) for k, v in st_p.items()}
+    taps = blk.taps_table
+    for b in range(3):
+        xs, rs = x[b * n:(b + 1) * n], rr[b * n:(b + 1) * n]
+        c = torch.tensor(n if b < 2 else n - 333, dtype=torch.int32)
+        ref = vw.vrr_walk(xs, st_p["tail"], rs, st_p["rr_tail"],
+                          st_p["q_int"], st_p["mu_frac"], c, blk.capacity,
+                          taps)
+        got = vw.vrr_walk(xs.to(dev), st_k["tail"], rs.to(dev),
+                          st_k["rr_tail"], st_k["q_int"], st_k["mu_frac"],
+                          c.to(dev), blk.capacity, taps.to(dev))
+        torch.cuda.synchronize()
+        for i in (1, 2, 3, 4, 5, 6):
+            assert torch.equal(got[i].cpu(), ref[i]), i
+        assert float((got[0].cpu() - ref[0]).abs().max()) <= \
+            1e-5 * float(ref[0].abs().max())
+        st_p = dict(tail=ref[5], rr_tail=ref[6], q_int=ref[2],
+                    mu_frac=ref[3])
+        st_k = dict(tail=got[5], rr_tail=got[6], q_int=got[2],
+                    mu_frac=got[3])
+
+
+def test_vrr_walk_wrapper_counts_launches_and_rejects_bad_input(dev):
+    from grbaz_tpu_torch.ops.cuda import vrr_walk as vw
+    from grbaz_tpu_torch.ops.resampler import VariableRatioResampler
+    blk = VariableRatioResampler(1024, dtype=torch.float32, device=dev)
+    st = blk.init_state()
+    x = torch.zeros(1024, device=dev)
+    c = torch.tensor(1024, dtype=torch.int32, device=dev)
+    args = (st["tail"], x, st["rr_tail"], st["q_int"], st["mu_frac"], c,
+            blk.capacity, blk.taps_table)
+    before = vw.vrr_walk.launches
+    vw.vrr_walk(x, *args)
+    assert vw.vrr_walk.launches == before + 1
+    with pytest.raises(TypeError):
+        vw.vrr_walk(x.double(), *args)
+    with pytest.raises(ValueError):
+        vw.vrr_walk_kernel(x, st["tail"], x, st["rr_tail"], st["q_int"],
+                           st["mu_frac"], c.cpu(), blk.capacity,
+                           blk.taps_table)
+    with pytest.raises(ValueError):
+        vw.vrr_walk_kernel(x[:4], *args)
+    assert vw.vrr_walk.launches == before + 1
+    assert 0.1 < vw.chain_step_ns(1 << 16) < 1000.0

@@ -189,3 +189,184 @@ def test_resampler_matches_golden():
 def test_rational_of_matches_jax():
     for r in (25 / 24, 125 / 24, 8.333333333333334, 1.7, np.pi):
         assert tres._rational_of(r) == jres._rational_of(r)
+
+
+# ---------------------------------------------------------------------------
+# AMDemod, onepole_lowpass
+# ---------------------------------------------------------------------------
+
+def _am(rng, n, blocks=3):
+    t = np.arange(n * blocks)
+    x = (0.5 * (1 + 0.8 * np.sin(2 * np.pi * 1e-3 * t))
+         * np.exp(2j * np.pi * 0.01 * t)
+         + 0.01 * (rng.standard_normal(t.size)
+                   + 1j * rng.standard_normal(t.size))).astype(np.complex64)
+    return [x[i * n:(i + 1) * n] for i in range(blocks)]
+
+
+@pytest.mark.parametrize("partial", [False, True])
+def test_am_demod_matches_jax(rng, partial):
+    n = 4096
+    blocks = _am(rng, n)
+    counts = [n, n - 1000 if partial else n, 0 if partial else n]
+    _run(jdemod.AMDemod(1e-3, 2.0), tdemod.AMDemod(1e-3, 2.0, device=CPU),
+         blocks, counts)
+
+
+def test_am_demod_retunes(rng):
+    n = 2048
+    blocks = _am(rng, n)
+    p0 = jdemod.AMDemod(1e-3, 2.0).init_params()
+    p1 = dict(alpha=np.float32(5e-3), gain=np.float32(0.5))
+    _run(jdemod.AMDemod(1e-3, 2.0), tdemod.AMDemod(1e-3, 2.0, device=CPU),
+         blocks, [n] * 3, [p0, p1, p1])
+
+
+def test_am_demod_partial_block_state_invariance(rng):
+    """As tests/test_agc_demod.py holds the JAX block: the stream cut into
+    full blocks and into partial blocks of a larger capacity gives the
+    same outputs bit for bit."""
+    n, bs, cap = 8192, 1024, 2048
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) \
+        .astype(np.complex64)
+
+    def run(capacity):
+        blk = tdemod.AMDemod(1e-3, device=CPU)
+        st, pr, out = blk.init_state(), blk.init_params(), []
+        for i in range(0, n, bs):
+            d = np.zeros(capacity, np.complex64)
+            d[:bs] = x[i:i + bs]
+            s = TStream.full(torch.from_numpy(d))
+            s.count = torch.tensor(bs, dtype=torch.int32)
+            st, (y,) = blk.apply(st, pr, s)
+            out.append(y.data.numpy()[:int(y.count)])
+        return np.concatenate(out)
+
+    np.testing.assert_array_equal(run(bs), run(cap))
+
+
+@pytest.mark.parametrize("alpha", [1e-3, 0.25, 1.0])
+def test_onepole_lowpass_matches_jax(rng, alpha):
+    x = rng.standard_normal(5000).astype(np.float32)
+    ref = np.asarray(jiir.onepole_lowpass(jnp.asarray(x), alpha,
+                                          jnp.float32(0.3)))
+    got = tiir.onepole_lowpass(torch.from_numpy(x), alpha, torch.tensor(0.3))
+    _close(got.numpy(), ref)
+    got_t = tiir.onepole_lowpass(torch.from_numpy(x),
+                                 torch.tensor(np.float32(alpha)),
+                                 torch.tensor(0.3))
+    _close(got_t.numpy(), ref)
+
+
+# ---------------------------------------------------------------------------
+# VariableRatioResampler (the ratio-stream mode)
+# ---------------------------------------------------------------------------
+
+def _vrr_run(jblk, tblk, xs, rrs, counts):
+    """Both blocks over chained blocks: per block (counts, q, mu, flags)
+    equal, outputs within 1e-6 of the max."""
+    jst = jax.tree_util.tree_map(jnp.asarray, jblk.init_state())
+    tst = tblk.init_state()
+    outs = []
+    for x, r, c in zip(xs, rrs, counts):
+        jm = JStream.full(jnp.asarray(x)).meta
+        jst, (jy,) = jblk.apply(
+            jst, None, JStream(jnp.asarray(x), jnp.int32(c), jm),
+            JStream(jnp.asarray(r), jnp.int32(c), jm))
+        tx = TStream.full(torch.from_numpy(x))
+        tx.count = torch.tensor(c, dtype=torch.int32)
+        tst, (ty,) = tblk.apply(tst, None, tx,
+                                TStream.full(torch.from_numpy(r)))
+        assert int(ty.count) == int(jy.count)
+        assert int(ty.meta.flags) == int(jy.meta.flags)
+        assert int(tst["q_int"]) == int(jst["q_int"])
+        assert int(tst["mu_frac"]) == int(jst["mu_frac"])
+        np.testing.assert_array_equal(tst["tail"].numpy(),
+                                      np.asarray(jst["tail"]))
+        np.testing.assert_array_equal(tst["rr_tail"].numpy(),
+                                      np.asarray(jst["rr_tail"]))
+        _close(ty.data.numpy(), np.asarray(jy.data), rel=1e-6)
+        outs.append((int(ty.count), int(ty.meta.flags)))
+    return outs
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64])
+@pytest.mark.parametrize("per_input,partial", [(2.0, False), (2.0, True),
+                                               (0.6, False)])
+def test_variable_ratio_resampler_matches_jax(rng, dtype, per_input,
+                                              partial):
+    """Counts, q_int, mu_frac, tails and flags equal, outputs within 1e-6
+    of the max; too small an output budget (0.6 outputs an input against
+    a ratio near 1.3) raises BUFFER_OVERRUN as the JAX block does."""
+    n, blocks = 512, 3
+    x = rng.standard_normal(n * blocks).astype(np.float32)
+    if dtype == np.complex64:
+        x = (x + 1j * rng.standard_normal(n * blocks)).astype(np.complex64)
+    rr = (1.3 + 0.05 * np.sin(np.arange(n * blocks) * 0.01)) \
+        .astype(np.float32)
+    jdt = jnp.float32 if dtype == np.float32 else jnp.complex64
+    tdt = torch.float32 if dtype == np.float32 else torch.complex64
+    jblk = jres.VariableRatioResampler(n, per_input, dtype=jdt)
+    tblk = tres.VariableRatioResampler(n, per_input, dtype=tdt, device=CPU)
+    assert tblk.capacity == jblk.capacity
+    counts = [n, n - 77 if partial else n, n]
+    outs = _vrr_run(jblk, tblk, [x[b * n:(b + 1) * n] for b in range(blocks)],
+                    [rr[b * n:(b + 1) * n] for b in range(blocks)], counts)
+    overrun = TStream.full(torch.zeros(1)).meta.flags | 0x04
+    if per_input < 1.0:
+        assert all(f == int(overrun) for _, f in outs)
+    elif not partial:
+        assert all(f == 0 for _, f in outs)
+
+
+def test_variable_ratio_stream_mode_against_serial_model(rng):
+    """tests/test_resampler.py's serial model of the reference loop (emit
+    at (ii, mu), read inc = rr[ii], mu += inc, ii += floor), the port on
+    the CPU within 80 dB."""
+    from grbaz_tpu_torch.ops.mmse import NSTEPS_LOG2, NTAPS, TAPS_TABLE
+    n, blocks = 512, 3
+    gen = np.random.default_rng(31)
+    x = gen.standard_normal(n * blocks).astype(np.float32)
+    rr = (1.3 + 0.05 * np.sin(np.arange(n * blocks) * 0.01)) \
+        .astype(np.float32)
+    frame = np.concatenate([np.zeros(tres.HIST, np.float32), x])
+    rrf = np.concatenate([np.zeros(tres.HIST, np.float32), rr])
+    q, mu, ref = tres.HIST, 0, []
+    shift = 32 - NSTEPS_LOG2 - 1
+    while q + NTAPS <= len(frame):
+        bin_ = ((mu >> 1) + (1 << (shift - 1))) >> shift
+        ref.append(float(frame[q:q + NTAPS] @ TAPS_TABLE[bin_]))
+        inc = float(rrf[q])
+        ip = int(np.floor(inc))
+        fr = int(np.float32(inc - ip) * (2.0 ** 32)) & 0xFFFFFFFF
+        s = mu + fr
+        q += ip + (s >> 32)
+        mu = s & 0xFFFFFFFF
+    ref = np.asarray(ref, np.float32)
+    blk = tres.VariableRatioResampler(n, dtype=torch.float32, device=CPU)
+    st, got = blk.init_state(), []
+    for b in range(blocks):
+        st, (y,) = blk.apply(
+            st, None, TStream.full(torch.from_numpy(x[b * n:(b + 1) * n])),
+            TStream.full(torch.from_numpy(rr[b * n:(b + 1) * n])))
+        got.append(y.data.numpy()[:int(y.count)])
+    got = np.concatenate(got)
+    m = min(len(got), len(ref))
+    assert m > 0.9 * len(ref)
+    assert snr_db(ref[:m], got[:m]) > 80
+
+
+def test_chip_smoke_am_path_on_the_cpu():
+    """chip_smoke.py's AM scene and graph (channel at decim 16, AMDemod,
+    the ratio-stream resampler into 48 kHz, the channel's spectrum),
+    rehearsed on the CPU over three blocks: the tone back within 5 Hz
+    above 30 dB SINAD and the carrier in the spectrum's centre bin."""
+    import chip_smoke as cs
+    feeds = cs.am_scene(torch.device(CPU))[:3]
+    outs, flags, _ = cs.run_inputs(cs.am_graph(CPU), feeds, cs.AM_FS)
+    audio = torch.cat(cs.valid(outs, "audio")[1:]).numpy()
+    f, sinad = cs.tone_sinad(audio, cs.AUDIO_RATE)
+    assert abs(f - cs.TONE_HZ) < 5.0 and sinad > 30.0
+    spec = outs[-1]["spectra"][0][: int(outs[-1]["spectra"][1])]
+    assert int(spec.mean(dim=0).argmax()) == cs.AM_FFT // 2
+    assert not any(fl["audio"] for fl in flags)

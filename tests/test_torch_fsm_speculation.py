@@ -1,5 +1,7 @@
-"""The chunk-parallel speculative walk of the lockout peak FSM, as a numpy
-model, == the serial walk (``ops/detect.peak_fsm_plain``) bit for bit.
+"""The chunk-parallel speculative walks of the lockout peak FSM and of the
+FasTrak decoder, as numpy models, == their serial walks
+(``ops/detect.peak_fsm_plain``, ``ops/misc.fastrak_fsm_plain``) bit for
+bit. This module imports no JAX: the card tests take the models from it.
 
 ``csrc/peak_fsm.cu`` cuts each row into chunks of ``chunk`` samples. Every
 chunk but the first walks from a guess: an idle state (not rising, not
@@ -17,6 +19,9 @@ dead fields of an end state whose walk saw no start). Its inner walk is
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
+from grbaz_tpu_torch.ops import misc as ftm
 
 from grbaz_tpu_torch.ops.cuda import peak_fsm as pf
 from grbaz_tpu_torch.ops.detect import (FSM_FIELDS, PeakDetector, _i32,
@@ -257,3 +262,153 @@ def test_speculation_hits_well_spaced_pulses():
     assert rep.sum() == 0
     _, _, _, rep0 = speculative_fsm(x, st, thr, cfg, 32, 0)
     assert rep0.sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# the FasTrak FSM (csrc/fastrak_fsm.cu)
+#
+# The kernel cuts each row into chunks, walks every chunk but the first
+# from a SEARCH guess after a warm-up, checks the guesses in order on the
+# fields live in the guess's state, walks the misses again, carries each
+# group of fields from the last chunk that wrote it, and patches the
+# passing frames' repeat counts from the chunks before.
+# ---------------------------------------------------------------------------
+
+# the groups of fields (indices into FT_FIELDS) a state holds live, by the
+# group's bit: the fire's fields, crc_bits, payload_len, the ID
+GROUPS = ((1, 2, 3, 4, 7), (6,), (8,), (9,))
+LIVE = (0, 1, 3, 7, 15)   # by state: SEARCH, SYNC, TYPE, DECODE, CRC
+
+
+def agrees(g: list, s: list) -> bool:
+    """The kernel's check: state and crc_buf, and each group live in the
+    guess's state, equal."""
+    if g[0] != s[0] or g[5] != s[5]:
+        return False
+    return all(g[i] == s[i] for grp, idx in enumerate(GROUPS)
+               if LIVE[g[0]] >> grp & 1 for i in idx)
+
+
+def speculative_fastrak(metric, sync, state, thr, os_, chunk, warm):
+    """The kernel's scheme over rows [B, n] (numpy): (events, counts, the
+    new state as a dict of numpy [B], repaired chunks per row)."""
+    rows, n = metric.shape
+    events = np.zeros((rows, ftm.MAX_EVENTS, 3), np.float32)
+    n_ev = np.zeros(rows, np.int32)
+    st = {k: np.array(v, np.int64, copy=True) for k, v in state.items()}
+    repairs = np.zeros(rows, np.int64)
+    for r in range(rows):
+        bit = (metric[r] >= 0).astype(int)
+        hit = sync[r] >= thr[r]
+
+        def walk(s, i0, i1, on_emit=None):
+            mask = 0
+            for i in range(i0, i1):
+                if ftm.ft_step(s, int(bit[i]), bool(hit[i]), os_) and on_emit:
+                    on_emit(s[9])
+                mask |= LIVE[s[0]]
+            return mask
+
+        recs = []   # speculate
+        for c0 in range(0, n, chunk):
+            if c0 == 0:
+                s = ftm.ft_state_list(st, r)[:10]
+            else:
+                s = [0] * 10
+                walk(s, max(c0 - warm, 0), c0)
+            guess, frames = list(s), []
+            mask = LIVE[guess[0]] | walk(s, c0, min(c0 + chunk, n),
+                                         frames.append)
+            recs.append((c0, guess, list(s), mask, frames))
+        # check, carry, patch; repair the misses
+        true = ftm.ft_state_list(st, r)
+        S, carry = true[:10], dict(id=true[10], count=true[11], total=0)
+
+        def put(ident, count):
+            ftm.ft_emit(events[r], carry["total"], ident, count)
+            carry["total"] += 1
+
+        for c0, guess, end, mask, frames in recs:
+            if c0 == 0 or agrees(guess, S):
+                S[0], S[5] = end[0], end[5]
+                for grp, idx in enumerate(GROUPS):
+                    if mask >> grp & 1:
+                        for i in idx:
+                            S[i] = end[i]
+                if frames:
+                    add = carry["count"] if frames[0] == carry["id"] else 0
+                    lead, local, last = True, 0, None
+                    for ident in frames:
+                        local = local + 1 if ident == last else 1
+                        lead = lead and ident == frames[0]
+                        put(ident, ftm._i32(local + add) if lead else local)
+                        last = ident
+                    carry["count"] = ftm._i32(local + add) if lead else local
+                    carry["id"] = last
+            else:
+                repairs[r] += 1
+
+                def true_emit(ident):
+                    carry["count"] = (ftm._i32(carry["count"] + 1)
+                                      if ident == carry["id"] else 1)
+                    carry["id"] = ident
+                    put(ident, carry["count"])
+                walk(S, c0, min(c0 + chunk, n), true_emit)
+        n_ev[r] = min(carry["total"], ftm.MAX_EVENTS)
+        for k, v in zip(ftm.FT_FIELDS, S + [carry["id"], carry["count"]]):
+            st[k][r] = v
+    return events, n_ev, st, repairs
+
+
+def _ft_plain(metric, sync, st, thr, os_):
+    ev, c, new = ftm.fastrak_fsm_plain(
+        torch.from_numpy(metric), torch.from_numpy(sync),
+        {k: torch.from_numpy(np.asarray(v)) for k, v in st.items()},
+        torch.from_numpy(thr), os_)
+    return ev.numpy(), c.numpy(), {k: v.numpy().astype(np.int64)
+                                   for k, v in new.items()}
+
+
+def ft_initial_state(rows):
+    return {k: np.zeros(rows, np.int64) for k in ftm.FT_FIELDS}
+
+
+FT_SCENES = {
+    "sparse os 8": lambda g: chip_smoke.fastrak_rows(g, 2, 2 * 4096, 8),
+    "dense os 2": lambda g: chip_smoke.fastrak_rows(g, 2, 2 * 3000, 2,
+                                                    gap=(0, 3)),
+    "many frames os 1": lambda g: chip_smoke.fastrak_rows(g, 1, 2 * 6000, 1,
+                                                          gap=(0, 4)),
+    "sync held high": lambda g: (chip_smoke.fastrak_rows(g, 1, 2 * 2000,
+                                                         2)[0],
+                                 np.full((1, 4000), 5.0, np.float32)),
+}
+
+
+@pytest.mark.parametrize("chunk,warm", [(32, 0), (64, 64), (200, 700),
+                                        (1024, 1280)])
+@pytest.mark.parametrize("scene", list(FT_SCENES))
+def test_speculative_fastrak_equals_the_serial_walk(scene, chunk, warm):
+    """Events, counts and the whole state bit for bit over two chained
+    calls, whatever the chunk and warm-up."""
+    gen = np.random.default_rng(len(scene) + chunk)
+    metric, sync = FT_SCENES[scene](gen)
+    os_ = int(scene.split("os ")[1]) if "os" in scene else 2
+    rows, total = metric.shape
+    n = total // 2
+    thr = np.ones(rows, np.float32)
+    st_m = st_p = ft_initial_state(rows)
+    for c in range(2):
+        m = np.ascontiguousarray(metric[:, c * n:(c + 1) * n])
+        y = np.ascontiguousarray(sync[:, c * n:(c + 1) * n])
+        em, cm, st_m, rep = speculative_fastrak(m, y, st_m, thr, os_, chunk,
+                                                warm)
+        ep, cp, st_p = _ft_plain(m, y, st_p, thr, os_)
+        np.testing.assert_array_equal(em.view(np.int32), ep.view(np.int32))
+        np.testing.assert_array_equal(cm, cp)
+        for k in ftm.FT_FIELDS:
+            np.testing.assert_array_equal(st_m[k], st_p[k], k)
+        if scene == "sync held high" and warm <= 64:
+            # nearly every guess fires out of step with the truth
+            assert rep.sum() >= 0.8 * rows * (-(-n // chunk) - 1)
+    assert cp.sum() > 0 or scene == "sync held high"

@@ -40,11 +40,13 @@ def test_importing_every_module_loads_no_jax():
     assert NEW_MODULES <= loaded, NEW_MODULES - loaded
 
 
-# the modules of BASELINE configs 1, 3, 4 and 5, and of the burst path
+# the modules of BASELINE configs 1, 3, 4 and 5, of the burst path, and
+# of the simple and per-sample blocks with their two kernels
 NEW_MODULES = {f"grbaz_tpu_torch.{m}" for m in (
     "ops.agc", "ops.spectral", "ops.colour", "ops.segments", "ops.detect",
     "ops.doa", "models.spectral", "parallel.channel_bank", "ops.burst",
-    "ops.mux", "ops.hopper", "ops.cuda.peak_fsm")}
+    "ops.mux", "ops.hopper", "ops.cuda.peak_fsm", "ops.basic", "ops.misc",
+    "ops.cuda.fastrak_fsm", "ops.cuda.vrr_walk")}
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -1,7 +1,9 @@
-// CPU emulation of the CUDA pieces csrc/channel_bank.cu uses, for
-// tools/cpu_shim/bank_check.py: one std::thread a CUDA thread, blocks in
-// turn, shared memory filled with NaN before each block.
+// CPU emulation of the CUDA pieces csrc/channel_bank.cu, fastrak_fsm.cu and
+// vrr_walk.cu use, for tools/cpu_shim/bank_check.py and fsm_check.py: one
+// std::thread a CUDA thread, blocks in turn, shared memory filled with NaN
+// before each block.
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -18,9 +20,12 @@
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __align__(x)
+#define __shared__ static  // blocks run in turn: one copy serves each
 
 struct float2 { float x, y; };
+struct float3 { float x, y, z; };
 struct float4 { float x, y, z, w; };
+inline float3 make_float3(float a, float b, float c) { return {a, b, c}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
@@ -55,6 +60,70 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   shim_warp_sync();
   return r;
 }
+// any 4-byte value from lane `src` of the warp (the slot array carries it)
+template <class T>
+inline T shim_from_lane(T v, int src) {
+  static_assert(sizeof(T) <= 64, "a slot holds 64 bytes");
+  float* s = shim_blk->slots.data();
+  std::memcpy(&s[shim_tid * 16], &v, sizeof(T));
+  shim_warp_sync();
+  T r;
+  std::memcpy(&r, &s[((shim_tid & ~31) + (src & 31)) * 16], sizeof(T));
+  shim_warp_sync();
+  return r;
+}
+inline long long __shfl_xor_sync(unsigned, long long v, int off) {
+  return shim_from_lane(v, (shim_tid & 31) ^ off);
+}
+inline std::mutex shim_atomic_mutex;
+inline long long atomicMax(long long* a, long long v) {
+  std::lock_guard<std::mutex> g(shim_atomic_mutex);
+  long long old = *a;
+  if (v > old) *a = v;
+  return old;
+}
+inline long long atomicMin(long long* a, long long v) {
+  std::lock_guard<std::mutex> g(shim_atomic_mutex);
+  long long old = *a;
+  if (v < old) *a = v;
+  return old;
+}
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src) { return shim_from_lane(v, src); }
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, unsigned d) {
+  const int lane = shim_tid & 31;
+  return shim_from_lane(v, lane >= (int)d ? lane - (int)d : lane);
+}
+inline unsigned __ballot_sync(unsigned, bool p) {
+  float* s = shim_blk->slots.data();
+  const int base = shim_tid & ~31;
+  const int v = p ? 1 : 0;
+  std::memcpy(&s[shim_tid * 16], &v, 4);
+  shim_warp_sync();
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) {
+    int b;
+    std::memcpy(&b, &s[(base + l) * 16], 4);
+    m |= (b ? 1u : 0u) << l;
+  }
+  shim_warp_sync();
+  return m;
+}
+inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp_sync(); }
+inline int __ffs(unsigned v) { return v ? __builtin_ctz(v) + 1 : 0; }
+inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
+inline float __int2float_rn(int v) { return (float)v; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline int __float2int_rz(float v) { return (int)v; }
+inline unsigned __float2uint_rz(float v) {
+  return v <= 0.f ? 0u : v >= 4294967296.f ? 0xffffffffu : (unsigned)v;
+}
+using std::max;
+using std::min;
 inline float __uint2float_rn(uint32_t v) { return (float)v; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
