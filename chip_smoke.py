@@ -72,7 +72,25 @@ failure of which exits non-zero:
     one launch a block); every passing ID and count found, K1 bit-equal
     to its plain version on blocks 0-1's card-computed inputs, the CPU
     path the same IDs; then timed and profiled;
-12. every block of ``ops/basic.py`` and ``ops/misc.py`` in a one-block
+12. the FEC path (``fec_path``): AutoFEC over blocks of 2^16 QPSK
+    symbols of a K=7 (171, 133) coded stream that the channel rotated and
+    conjugated: the search steps to the transform that undoes it and
+    locks, then 8 blocks decode (kernel ``csrc/viterbi.cu``, one launch a
+    block) to the planted bits up to the code's complement;
+    ViterbiDecoder(overlap=96) over the same soft pairs in 8 blocks, blocks
+    0-1 bit-equal to the CPU; fec_eval on 2^14 symbols card against CPU
+    (bits and BER equal); GLFSRSource -> 1% flips -> PNBERv at 2^20 bits a
+    block (no kernel), its estimate inside the JAX test's bar and within
+    1e-6 of the CPU's; then timed and profiled;
+13. the decoders path (``decoders_path``): ACARSDecoder
+    (``csrc/acars_fsm.cu``), ManchesterDecode (``csrc/manchester_fsm.cu``)
+    and two DPLLBitSyncs (``csrc/dpll_walk.cu``), each a one-block graph
+    over 8 blocks of 2^14: every planted ACARS packet with its bytes (one
+    across a block boundary, one printed through ``utils/acars.py``), the
+    Manchester bits after a dropped chip's resync, the DPLL estimates at
+    periods 100.3 and 16.0; blocks 0-1 bit-equal to the CPU; timed and
+    profiled;
+14. every block of ``ops/basic.py`` and ``ops/misc.py`` in a one-block
     graph on the card against the CPU (``small_blocks_phase``).
 
 The FSM kernel's cases run at the burst path's [1, 2^20] (its row) and
@@ -89,6 +107,14 @@ The FasTrak kernel's cases run at its path's [1, 2^20], at the decoder
 bank's [64, 2^14] and with the sync stream held high (nearly every chunk
 walked again, its worst case); the ratio-stream kernel at the AM path's
 2^16-sample f32 block, its walk's chain bound printed beside it.
+
+The decoders' kernels: K3 (Viterbi) at [2^16, 2] (an AutoFEC block) and
+[2^16 + 96, 2] (a ViterbiDecoder block with its overlap), bits and final
+path metrics; K4-K6 (ACARS, Manchester, DPLL) at [1, 2^14] and at the JAX
+benchmark's bank [64, 2^14], outputs and the whole state; each bit-equal
+to its plain version over two chained calls, and printed beside its
+serial chain bound (steps times one dependent step, timed alone by each
+source's probe).
 
 B3's row counts the launches of both its entry points and times the
 block entry point, which the cascade chain's ``FIRDecimator`` launches;
@@ -117,27 +143,34 @@ from grbaz_tpu_torch.core.graph import Flowgraph
 from grbaz_tpu_torch.core.pump import StreamPump
 from grbaz_tpu_torch.core.stream import (Stream, StreamMeta, decode_abs_index,
                                          stream_flags)
+from grbaz_tpu_torch.models.auto_fec import (_ROTATIONS, AutoFEC, fec_eval,
+                                             reencode)
 from grbaz_tpu_torch.models.spectral import (FACConfig, SpectralConfig,
                                              build_fac, build_spectrum)
 from grbaz_tpu_torch.models.wbfm import WBFMConfig, WBFMFrontend, build_wbfm
-from grbaz_tpu_torch.ops import basic, doa, exact, fir, misc
+from grbaz_tpu_torch.ops import basic, decode, doa, exact, fec, fir, misc
 from grbaz_tpu_torch.ops.agc import AGC
 from grbaz_tpu_torch.ops.burst import (BurstBuffer, Burster, BursterConfig,
                                        BurstTagger, Gate, Merge, TimeKeeper,
                                        decode_abs_events)
 from grbaz_tpu_torch.ops.colour import Colouriser
 from grbaz_tpu_torch.ops.detect import Correlator, PeakDetector, RadarDetector
+from grbaz_tpu_torch.ops.cuda import acars_fsm as af
 from grbaz_tpu_torch.ops.cuda import build
 from grbaz_tpu_torch.ops.cuda import channel_bank as cb
+from grbaz_tpu_torch.ops.cuda import dpll_walk as dw
 from grbaz_tpu_torch.ops.cuda import fastrak_fsm as ff
 from grbaz_tpu_torch.ops.cuda import fir_decimate as fd
+from grbaz_tpu_torch.ops.cuda import manchester_fsm as mf
 from grbaz_tpu_torch.ops.cuda import peak_fsm as pf
 from grbaz_tpu_torch.ops.cuda import tiling
+from grbaz_tpu_torch.ops.cuda import viterbi as vt
 from grbaz_tpu_torch.ops.cuda import vrr_walk as vw
 from grbaz_tpu_torch.ops.cuda import xlating_fir as xf
 from grbaz_tpu_torch.ops.cuda import xlating_fir_ctaps as xc
 from grbaz_tpu_torch.ops.wbfm_frontend import rotated_taps
 from grbaz_tpu_torch.ops.demod import AMDemod
+from grbaz_tpu_torch.ops.fec import GLFSRSource, PNBERv, ViterbiDecoder
 from grbaz_tpu_torch.ops.fir import FIRDecimator, FreqXlatingFIRDecimator
 from grbaz_tpu_torch.ops.misc import FastrakDecoder
 from grbaz_tpu_torch.ops.mmse import NTAPS as NTAPS_MMSE
@@ -147,6 +180,7 @@ from grbaz_tpu_torch.ops.resampler import (FractionalResampler,
                                            resample_block_rational)
 from grbaz_tpu_torch.ops.spectral import PowerSpectrum, Vectorize
 from grbaz_tpu_torch.parallel.channel_bank import DynamicChannelBank
+from grbaz_tpu_torch.utils import acars
 
 FS = 3.2e6
 BLOCK = 1 << 20
@@ -196,6 +230,19 @@ KERNELS = {  # row -> (wrappers whose launches it counts, source, TPU kernel)
     "vrr_walk": (
         (vw.vrr_walk,), "grbaz_tpu_torch/csrc/vrr_walk.cu",
         "grbaz_tpu/ops/resampler.py:315"),
+    # the decoders' and the Viterbi decoder's per-sample scans
+    "viterbi": (
+        (vt.viterbi,), "grbaz_tpu_torch/csrc/viterbi.cu",
+        "grbaz_tpu/ops/fec.py:244"),
+    "acars_fsm": (
+        (af.acars_fsm,), "grbaz_tpu_torch/csrc/acars_fsm.cu",
+        "grbaz_tpu/ops/decode.py:204"),
+    "manchester_fsm": (
+        (mf.manchester_fsm,), "grbaz_tpu_torch/csrc/manchester_fsm.cu",
+        "grbaz_tpu/ops/decode.py:44"),
+    "dpll_walk": (
+        (dw.dpll_walk,), "grbaz_tpu_torch/csrc/dpll_walk.cu",
+        "grbaz_tpu/ops/decode.py:118"),
 }
 # kernels each path launches; xlating_fir_frame_rtf is the
 # frame-convention entry point of the channelizer kernel, which the JAX
@@ -500,6 +547,7 @@ def kernel_cases(dev):
         fastrak_case(dev, 9, 1, BLOCK, "forced miss: sync held high",
                      held=True),
         vrr_case(dev),
+        *decode_kernel_cases(dev),
     ]
 
 
@@ -2087,6 +2135,553 @@ def fastrak_path(dev):
 
 
 # ---------------------------------------------------------------------------
+# the decoders and FEC (ops/decode.py, ops/fec.py, models/auto_fec.py)
+# ---------------------------------------------------------------------------
+
+DEC_BLOCK = 1 << 14      # the JAX benchmark's decoder block (benchmarks.py)
+DEC_BANK = 64            # and its bank of streams
+FEC_BLOCK = 1 << 16      # QPSK symbols a block: ~0.9 s at LRPT's 72 ksym/s
+FEC_OVERLAP = 96
+FEC_NOISE = 0.4          # per component, on +-1 symbols: ~0.6% hard errors
+FEC_ROTATION = 3         # the channel's rotation (with a conjugation)
+FEC_LOCKED = (1, True)   # the transform that undoes it
+PN_BLOCK = 1 << 20
+PN_FLIP = 0.01
+DECODE_KERNELS = ("acars_fsm", "manchester_fsm", "dpll_walk")
+SOH, STX, ETX, DEL = 0x01, 0x02, 0x03, 0x7F
+
+
+def acars_payload(rng, text: bytes):
+    """One downlink's bytes: SOH, mode, address, ack, label, block id,
+    STX, sequence number and flight, ``text``, ETX, two CRC bytes, DEL
+    (the layout ``utils/acars.py`` parses)."""
+    addr = b".N%05d" % int(rng.integers(0, 100000))
+    flight = b"XA%04d" % int(rng.integers(0, 10000))
+    return ([SOH] + list(b"2") + list(addr) + [0x15] + list(b"H1")
+            + list(b"5") + [STX] + list(b"M01A") + list(flight) + list(text)
+            + [ETX] + [int(v) for v in rng.integers(0x20, 0x7F, 2)] + [DEL])
+
+
+def acars_air(payload) -> np.ndarray:
+    """Air bits of one packet: the preamble 0x3FFE5C5C, then each byte LSB
+    first with an odd-parity bit, differentially encoded (a 1 where the
+    bit changes)."""
+    tx = []
+    for byte in payload:
+        bits = [(byte >> i) & 1 for i in range(7)]
+        tx += bits + [1 - sum(bits) % 2]
+    pre = [(0x3FFE5C5C >> (31 - i)) & 1 for i in range(32)]
+    return np.array(pre + list(np.abs(np.diff([0] + tx))), np.int64)
+
+
+def acars_rows(rng, rows, n, gap=(40, 400)):
+    """[rows, n] float32 bit metrics (> 0: air bit 0) of ACARS packets
+    after gaps of ``gap`` air bits, amplitudes 0.5-1.5 with no sign
+    error; and each row's payloads in order."""
+    out = np.empty((rows, n), np.float32)
+    sent = []
+    for r in range(rows):
+        air, pays = [], []
+        while sum(map(len, air)) < n:
+            air.append(np.zeros(int(rng.integers(*gap)), np.int64))
+            pays.append(acars_payload(rng, b"TEXT %d" % len(pays)))
+            air.append(acars_air(pays[-1]))
+        bits = np.concatenate(air)[:n]
+        out[r] = np.where(bits == 1, -1.0, 1.0) * rng.uniform(0.5, 1.5, n)
+        sent.append(pays)
+    return out, sent
+
+
+def manchester_rows(rng, rows, n):
+    """[rows, n] uint8 Manchester chips (a 1 as 0 then 1) of random bits,
+    each row with one chip dropped at a random place (the decoder must
+    slip to resync) and a few chips flipped; and each row's bits."""
+    out = np.empty((rows, n), np.uint8)
+    sent = []
+    for r in range(rows):
+        bits = rng.integers(0, 2, n // 2 + 8).astype(np.uint8)
+        chips = np.stack([1 - bits, bits], 1).reshape(-1)
+        drop = int(rng.integers(n // 8, n - n // 8))
+        chips = np.delete(chips, drop)[:n]
+        chips[rng.integers(0, n, 3)] ^= 1
+        out[r] = chips
+        sent.append(bits)
+    return out, sent
+
+
+def pulse_rows(rng, rows, n, period=(12.0, 130.0)):
+    """[rows, n] uint8 pulse trains, each row at its own period with
+    +-0.4 samples of jitter, a few pulses missing and a few strays."""
+    out = np.zeros((rows, n), np.uint8)
+    for r in range(rows):
+        p = rng.uniform(*period)
+        pos = np.arange(rng.uniform(0, p), n, p) + rng.uniform(-0.4, 0.4)
+        pos = np.clip(pos, 0, n - 1).astype(np.int64)
+        pos = pos[rng.random(len(pos)) > 0.02]
+        out[r, pos] = 1
+        out[r, rng.integers(0, n, 3)] = 1
+    return out
+
+
+def rows_state(block, rows, dev):
+    """``block``'s initial state as [rows] tensors (ACARS's packet [rows,
+    252])."""
+    return {k: v.reshape(1, -1).expand(rows, -1).contiguous() if v.dim()
+            else v.reshape(1).expand(rows).contiguous()
+            for k, v in block.init_state().items()}
+
+
+def same_state(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+
+
+def serial_case(name, shape, rows, n, xs, st0, call, plain, nbytes, probe,
+                outputs):
+    """A serial FSM kernel on ``rows`` streams: ``call(fn, x, st)`` runs the
+    wrapper (or its plain version ``plain``) on one [rows, n] input from
+    state ``st`` and returns (outputs..., new state). The check chains the
+    two inputs ``xs`` through both and holds every output and the whole
+    state bit for bit; ``outputs(res)`` is the float tensor the error line
+    reads. Its bytes: inputs read once, outputs written once. Its chain
+    bound, printed beside it: n steps of the kernel's step alone (timed by
+    ``probe()``, ns)."""
+    label = f"{name} [{shape}, [{rows}, {n}]]"
+
+    def chain(fn):
+        st, out = st0, []
+        for x in xs:
+            res = call(fn, x, st)
+            out.append(res)
+            st = res[-1]
+        return out
+
+    def held():
+        kern, ref = chain(KERNELS[name][0][0]), chain(plain)
+        torch.cuda.synchronize()
+        for c, (g, p) in enumerate(zip(kern, ref)):
+            check(all(same_bits(a, b) for a, b in zip(g[:-1], p[:-1]))
+                  and same_state(g[-1], p[-1]),
+                  f"{label} call {c}: outputs or state differ from the "
+                  "plain version")
+        print(f"{label}: two chained calls, outputs and state bit-equal to "
+              "the plain version")
+        return outputs(kern[-1]), outputs(ref[-1])
+
+    def chain_bound():
+        step_ns = probe()
+        return (f"the walk's chain: {n} steps x {step_ns:.3f} ns a dependent "
+                f"step = {n * step_ns / 1e6:.4f} ms")
+
+    return dict(name=name, shape=f"{shape}, [{rows}, {n}]",
+                kernel=lambda i: call(KERNELS[name][0][0], xs[i % 2], st0),
+                plain=lambda i: call(plain, xs[i % 2], st0),
+                check=held, iters=20, plain_iters=1, library=None,
+                nbytes=nbytes, flops=0, after=chain_bound)
+
+
+def acars_case(dev, seed, rows, shape):
+    rng = np.random.default_rng(seed)
+    m, _ = acars_rows(rng, rows, 2 * DEC_BLOCK, gap=(10, 60))
+    xs = [torch.from_numpy(np.ascontiguousarray(
+        m[:, c * DEC_BLOCK:(c + 1) * DEC_BLOCK])).to(dev) for c in range(2)]
+    n_fields = len(decode.ACARS_FIELDS)
+    return serial_case(
+        "acars_fsm", shape, rows, DEC_BLOCK, xs,
+        rows_state(decode.ACARSDecoder(device=dev), rows, dev),
+        lambda fn, x, st: fn(x, st, 2), decode.acars_plain,
+        rows * (4 * DEC_BLOCK + 4 * 4 * 254 + 4 + 2 * 4 * (n_fields + 252)),
+        af.chain_step_ns, lambda res: res[0])
+
+
+def manchester_case(dev, seed, rows, shape):
+    rng = np.random.default_rng(seed)
+    chips, _ = manchester_rows(rng, rows, 2 * DEC_BLOCK)
+    xs = [torch.from_numpy(np.ascontiguousarray(
+        chips[:, c * DEC_BLOCK:(c + 1) * DEC_BLOCK])).to(dev)
+        for c in range(2)]
+    # the second call's rows end early, the padding walked but not emitted
+    counts = torch.tensor([DEC_BLOCK] * rows, dtype=torch.int32, device=dev)
+    counts[::3] = DEC_BLOCK - 1001
+
+    def call(fn, x, st):
+        return fn(x, counts if x is xs[1] else counts.clamp(min=DEC_BLOCK),
+                  st, False, 16, 8)
+    return serial_case(
+        "manchester_fsm", shape, rows, DEC_BLOCK, xs,
+        rows_state(decode.ManchesterDecode(device=dev), rows, dev), call,
+        decode.manchester_plain,
+        rows * (DEC_BLOCK + DEC_BLOCK // 2 + 1 + 4 + 4 + 2 * 16),
+        mf.chain_step_ns, lambda res: res[0].to(torch.float32))
+
+
+def dpll_case(dev, seed, rows, shape):
+    rng = np.random.default_rng(seed)
+    pulses = pulse_rows(rng, rows, 2 * DEC_BLOCK)
+    xs = [torch.from_numpy(np.ascontiguousarray(
+        pulses[:, c * DEC_BLOCK:(c + 1) * DEC_BLOCK])).to(dev)
+        for c in range(2)]
+    st0 = rows_state(decode.DPLLBitSync(16.0, device=dev), rows, dev)
+    st0["period"] = torch.from_numpy(rng.uniform(11.0, 140.0, rows).astype(
+        np.float32)).to(dev)
+    return serial_case(
+        "dpll_walk", shape, rows, DEC_BLOCK, xs, st0,
+        lambda fn, x, st: fn(x, st, 0.05, 0.05, 0.5), decode.dpll_plain,
+        rows * (6 * DEC_BLOCK + 512 * 12 + 4 + 2 * 20),
+        dw.chain_step_ns, lambda res: res[1])
+
+
+def fec_bits(rng, n):
+    """(bits [n] uint8, code [n, 2] int64): random bits through the
+    rate-1/2 K=7 (171, 133) encoder from the zero state."""
+    bits = rng.integers(0, 2, n).astype(np.uint8)
+    return bits, reencode(torch.from_numpy(bits), 7, (0o171, 0o133)).numpy()
+
+
+def soft_pairs(rng, n, noise=FEC_NOISE):
+    """(bits, [n, 2] float32 soft pairs of their code, +-1 plus noise)."""
+    bits, code = fec_bits(rng, n)
+    soft = code.astype(np.float32) * 2 - 1
+    return bits, soft + noise * rng.standard_normal((n, 2)).astype(np.float32)
+
+
+def viterbi_case(dev, seed, overlap, shape):
+    """K3 on one stream of FEC_BLOCK + ``overlap`` soft pairs (K = 7,
+    171/133). Two chained calls: with an overlap, the second call's first
+    pairs are the first call's last (a ViterbiDecoder's blocks); bits and
+    final path metrics bit-equal to the plain version. Its bytes: the
+    pairs read once, the bits and path metrics written once."""
+    rng = np.random.default_rng(seed)
+    _, soft = soft_pairs(rng, 2 * FEC_BLOCK + overlap)
+    soft = torch.from_numpy(soft).to(dev)
+    t_len = FEC_BLOCK + overlap
+    xs = [soft[:t_len].contiguous(),
+          soft[FEC_BLOCK:FEC_BLOCK + t_len].contiguous()]
+    exp = torch.from_numpy(fec.expected_outputs(7, (0o171, 0o133))).to(dev)
+    label = f"viterbi [{shape}, [{t_len}, 2]]"
+
+    def held():
+        out = []
+        for x in xs:
+            (bk, pk), (bp, pp) = vt.viterbi(x, exp), fec.viterbi_plain(x, exp)
+            torch.cuda.synchronize()
+            check(same_bits(bk, bp) and same_bits(pk, pp),
+                  f"{label}: bits or path metrics differ from the plain "
+                  "version")
+            out.append((bk, bp))
+        print(f"{label}: two chained calls, bits and final path metrics "
+              "bit-equal to the plain version")
+        return out[-1][0].to(torch.float32), out[-1][1].to(torch.float32)
+
+    def chain_bound():
+        step_ns = vt.chain_step_ns()
+        return (f"the add-compare-select chain: {t_len} steps x {step_ns:.3f}"
+                f" ns a warp step = {t_len * step_ns / 1e6:.4f} ms")
+
+    return dict(name="viterbi", shape=f"{shape}, [{t_len}, 2]",
+                kernel=lambda i: vt.viterbi(xs[i % 2], exp)[0],
+                plain=lambda i: fec.viterbi_plain(xs[i % 2], exp)[0],
+                check=held, iters=10, plain_iters=1, library=None,
+                nbytes=9 * t_len + 64 * 4 + 256 * 4, flops=0,
+                after=chain_bound)
+
+
+def decode_kernel_cases(dev):
+    """K3 at an AutoFEC block and a ViterbiDecoder block; K4-K6 at the
+    decoders path's [1, 2^14] and the JAX benchmark's bank [64, 2^14]."""
+    return [viterbi_case(dev, 31, 0, "AutoFEC block"),
+            viterbi_case(dev, 32, FEC_OVERLAP, "ViterbiDecoder block"),
+            acars_case(dev, 33, 1, "decoders path"),
+            acars_case(dev, 34, DEC_BANK, "decoder bank"),
+            manchester_case(dev, 35, 1, "decoders path"),
+            manchester_case(dev, 36, DEC_BANK, "decoder bank"),
+            dpll_case(dev, 37, 1, "decoders path"),
+            dpll_case(dev, 38, DEC_BANK, "decoder bank")]
+
+
+def fec_scene(dev, blocks):
+    """(symbols [blocks * FEC_BLOCK] complex64 on ``dev``, bits): a
+    continuous K=7 coded bit stream as QPSK (code bits in the signs of
+    real and imag) with noise, conjugated and rotated by the inverse of
+    FEC_ROTATION's fixing rotation, as tests/test_autofec_fsk4.py's
+    streams."""
+    rng = np.random.default_rng(41)
+    bits, code = fec_bits(rng, blocks * FEC_BLOCK)
+    c = code.astype(np.float32) * 2 - 1
+    sym = (c[:, 0] + 1j * c[:, 1]) + FEC_NOISE * (
+        rng.standard_normal(len(c)) + 1j * rng.standard_normal(len(c)))
+    sym = np.conj(sym) / _ROTATIONS[FEC_ROTATION]
+    return torch.from_numpy(sym.astype(np.complex64)).to(dev), bits
+
+
+def bit_errors(got, want):
+    """Share of bits that differ, up to the code's 180-degree complement,
+    past the first and last 16 (tests/test_autofec_fsk4.py:50-55)."""
+    g = got[16:-16].astype(np.int64)
+    w = want[16:-16].astype(np.int64)
+    return min(float(np.mean(g != w)), float(np.mean(g != 1 - w)))
+
+
+def fec_path(dev):
+    """The FEC path: AutoFEC over blocks of FEC_BLOCK symbols steps to
+    the channel's transform and locks, then decodes 8 blocks (one K3
+    launch a block, counted like phase 3), the bits the planted ones up
+    to the complement; ViterbiDecoder(overlap=96) over the same soft pairs
+    in 8 blocks; the first block's first 2^14 symbols through fec_eval
+    on the CPU, bits and BER equal; then GLFSRSource -> 1% flips ->
+    PNBERv at 2^20 bits a block, its estimate inside the JAX test's bar
+    and within 1e-6 of the CPU's. Timed and profiled."""
+    search = 8
+    sym, bits = fec_scene(dev, search + N_BLOCKS)
+    afec = AutoFEC(device=dev)
+    fed = []
+
+    def feed_all():
+        for b in range(search + N_BLOCKS):
+            out = afec.feed(sym[b * FEC_BLOCK:(b + 1) * FEC_BLOCK])
+            fed.append(out)
+            if sum(f[2] for f in fed) == N_BLOCKS:
+                return
+    # counted like phase 3, but the run ends when N_BLOCKS blocks have
+    # decoded under the lock, so its length is known only after it
+    reset_launches()
+    feed_all()
+    launches = launch_counts()
+    n_fed = len(fed)
+    check(launches["viterbi"] == n_fed and sum(launches.values()) == n_fed,
+          f"FEC path: {launches} launches over {n_fed} blocks")
+    lock_at = next(i for i, f in enumerate(fed) if f[2])
+    print(f"FEC path (AutoFEC, {FEC_BLOCK} symbols a block): locked after "
+          f"block {lock_at} at step {afec.steps}, transform (rotation "
+          f"{afec.rotation}, conjugate {afec.conjugate}); BER a block "
+          f"{[round(f[1], 5) for f in fed]}; launches {launches['viterbi']} "
+          f"over {n_fed} blocks")
+    check((afec.rotation, afec.conjugate) in (FEC_LOCKED, (3, True))
+          and not afec.vit_delay and not afec.vit_swap,
+          "AutoFEC locked on another transform")
+    worst = 0.0
+    for b, (got, ber, locked) in enumerate(fed):
+        if not locked:
+            continue
+        err = bit_errors(got.cpu().numpy(),
+                         bits[b * FEC_BLOCK:(b + 1) * FEC_BLOCK])
+        worst = max(worst, err)
+        check(err < 0.01 and ber < 0.02,
+              f"FEC block {b}: bit errors {err:.4f}, BER {ber:.4f}")
+    print(f"FEC path: {sum(f[2] for f in fed)} locked blocks, bit errors "
+          f"at most {worst:.2e} of the planted bits (up to the complement)")
+    rot, conj = afec.rotation, afec.conjugate
+    head = sym[:1 << 14]
+    gb, gber = fec_eval(head, rot, conj, False, False)
+    cb_, cber = fec_eval(head.cpu(), rot, conj, False, False)
+    check(same_bits(gb, cb_) and same_bits(gber, cber),
+          "fec_eval on the card and the CPU differ")
+    print(f"FEC path, 2^14 symbols card vs CPU: bits and BER "
+          f"({float(gber):.6f}) equal")
+    # ViterbiDecoder over the fixed soft pairs
+    fixed = torch.conj(sym) * torch.tensor(_ROTATIONS[rot], device=dev) \
+        if conj else sym * torch.tensor(_ROTATIONS[rot], device=dev)
+    soft = torch.stack([fixed.real, fixed.imag], 1)
+    xs = [soft[(search + b) * FEC_BLOCK:(search + b + 1) * FEC_BLOCK]
+          .contiguous() for b in range(N_BLOCKS)]
+    vdec = ViterbiDecoder(overlap=FEC_OVERLAP, name="vdec", device=dev)
+    outs, _ = counted("FEC path (ViterbiDecoder)", ("viterbi",), N_BLOCKS,
+                      lambda: run_graph(one_block_graph(vdec), xs, 72e3))
+    got = torch.cat(valid(outs, "out")).cpu().numpy()
+    want = bits[search * FEC_BLOCK:(search + N_BLOCKS) * FEC_BLOCK]
+    err = bit_errors(got, want)
+    check(got.shape == want.shape and err < 0.01,
+          f"ViterbiDecoder bit errors {err:.4f}")
+    cpu = run_graph(one_block_graph(ViterbiDecoder(
+        overlap=FEC_OVERLAP, name="vdec", device="cpu")),
+        [x.cpu() for x in xs[:2]], 72e3)
+    for b in range(2):
+        check(same_bits(outs[b]["out"][0], cpu[b]["out"][0]),
+              f"ViterbiDecoder block {b}: card and CPU differ")
+    print(f"FEC path (ViterbiDecoder, overlap {FEC_OVERLAP}): bit errors "
+          f"{err:.2e} over {N_BLOCKS} blocks; blocks 0-1 bit-equal to the "
+          "CPU")
+    pn_ber_phase(dev)
+    time_path("viterbi_decoder", one_block_graph(vdec), xs, 72e3, FEC_BLOCK,
+              "Mbit/s", kernels=("viterbi_kernel",))
+    return launches
+
+
+def pn_graph(device):
+    """GLFSRSource(7, 0x60, 'pn') -> XOR with a flip stream -> PNBERv."""
+    fg = Flowgraph("pn_ber")
+    src = GLFSRSource(7, PN_BLOCK, mask=0x60, seed=0x5A, convention="pn",
+                      name="pn", device=device)
+    flip = FnBlock(lambda a, b: a ^ b, n_in=2, name="flip")
+    ber = PNBERv(7, 0x60, 3e-4, name="ber", device=device)
+    fg.add(src)
+    fg.connect(src, (flip, 0))
+    fg.input("flips", (flip, 1))
+    fg.chain(flip, ber)
+    fg.output("ber", ber)
+    return fg
+
+
+def pn_ber_phase(dev):
+    """GLFSR -> 1% flips -> PNBERv over 4 blocks of 2^20 bits: the
+    estimate inside tests/test_decode_fec.py's bar (0.01-0.06: each flip
+    shows ~3 times), card against CPU within 1e-6; no kernel."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    feeds = [dict(flips=(torch.rand(PN_BLOCK, generator=gen, device=dev)
+                         < PN_FLIP).to(torch.uint8)) for _ in range(4)]
+    reset_launches()
+    outs, _, _ = run_inputs(pn_graph(dev), feeds, 1.0)
+    check(not any(launch_counts().values()), "PN BER path launched a kernel")
+    ests = [float(o["ber"][0][-1]) for o in outs]
+    check(all(0.01 < e < 0.06 for e in ests[1:]),
+          f"PN BER estimates {ests} outside 0.01-0.06")
+    cpu, _, _ = run_inputs(pn_graph("cpu"), to_cpu(feeds[:2]), 1.0)
+    err = max(float((outs[b]["ber"][0].cpu() - cpu[b]["ber"][0]).abs().max())
+              for b in range(2))
+    check(err <= 1e-6, f"PN BER card vs CPU {err:.3e}")
+    print(f"PN BER (GLFSR degree 7 'pn' -> {PN_FLIP:.0%} flips -> PNBERv, "
+          f"{PN_BLOCK} bits a block): estimates {[round(e, 5) for e in ests]}"
+          f"; card vs CPU within {err:.3e} (bar 1e-6)")
+
+
+def decoder_graphs(device):
+    """The decoders path's one-block graphs."""
+    return dict(acars=one_block_graph(decode.ACARSDecoder(
+                    name="acars", device=device)),
+                manchester=one_block_graph(decode.ManchesterDecode(
+                    name="manchester", device=device)),
+                dpll=one_block_graph(decode.DPLLBitSync(
+                    97.0, 0.1, name="dpll", device=device)),
+                dpll16=one_block_graph(decode.DPLLBitSync(
+                    15.5, name="dpll16", device=device)))
+
+
+def decoder_scene(dev):
+    """8 blocks of DEC_BLOCK samples for each decoder: ACARS packets (3 a
+    block, one across the boundary of blocks 3 and 4), Manchester chips
+    with a chip dropped in block 2, pulse trains of period 100.3 and
+    16.0."""
+    rng = np.random.default_rng(47)
+    n = N_BLOCKS * DEC_BLOCK
+    air, pays, at = [], [], 0
+    starts = [b * DEC_BLOCK + 600 + 5200 * k for b in range(N_BLOCKS)
+              for k in range(3)]
+    starts[3 * 3 + 2] = 4 * DEC_BLOCK - 200      # across blocks 3 and 4
+    for s in starts:
+        air.append(np.zeros(s - at, np.int64))
+        pays.append(acars_payload(rng, b"POS N47.4 W122.3 FL%03d" % len(pays)))
+        air.append(acars_air(pays[-1]))
+        at = s + len(air[-1])
+    bits = np.concatenate(air + [np.zeros(n - at, np.int64)])
+    metrics = (np.where(bits == 1, -1.0, 1.0) * rng.uniform(0.5, 1.5, n)
+               ).astype(np.float32)
+    data = rng.integers(0, 2, n // 2 + 8).astype(np.uint8)
+    chips = np.stack([1 - data, data], 1).reshape(-1)
+    chips = np.delete(chips, 2 * DEC_BLOCK + 777)[:n]
+    pulses = {}
+    for key, period in (("dpll", 100.3), ("dpll16", 16.0)):
+        p = np.zeros(n, np.uint8)
+        p[np.arange(0.0, n, period).astype(np.int64)] = 1
+        pulses[key] = p
+
+    def blocks(a):
+        return [torch.from_numpy(np.ascontiguousarray(
+            a[b * DEC_BLOCK:(b + 1) * DEC_BLOCK])).to(dev)
+            for b in range(N_BLOCKS)]
+    feeds = dict(acars=blocks(metrics), manchester=blocks(chips),
+                 dpll=blocks(pulses["dpll"]), dpll16=blocks(pulses["dpll16"]))
+    return feeds, pays, data
+
+
+def check_decoder_outputs(outs, pays, data):
+    """The decoders path's outputs (``outs[graph]``: outputs a block)
+    against the scene: every ACARS packet with its bytes and no parity
+    error, the Manchester bits after the resync the planted ones, both
+    DPLL estimates within 1.0 of their period."""
+    # ACARS: every packet, its bytes and no parity error
+    acars_outs = outs["acars"]
+    rows = [r for o in acars_outs
+            for r in o["out"][0][: int(o["out"][1])].cpu().numpy()]
+    got = [[int(v) for v in r[2:2 + int(r[0])]] for r in rows]
+    check(got == pays and all(r[1] == 0 for r in rows),
+          f"ACARS: {len(got)} packets, not the {len(pays)} planted")
+    print(f"ACARS: {len(got)} packets over {N_BLOCKS} blocks, bytes and "
+          f"parity as planted (one across blocks 3-4); a block "
+          f"{[int(o['out'][1]) for o in acars_outs]}; the first:\n  "
+          + acars.format_packet(rows[0]).replace("\n", "\n  "))
+    # Manchester: the bits after the slip's resync equal the planted ones
+    dec = torch.cat(valid(outs["manchester"], "out")).cpu().numpy()
+    tail = dec[-8000:]
+    offs = [o for o in range(len(data) - 8000)
+            if np.array_equal(data[o:o + 8000], tail)]
+    check(len(offs) == 1, "Manchester: the last 8000 bits are not the "
+          "planted ones after the resync")
+    print(f"Manchester: {len(dec)} bits from {N_BLOCKS * DEC_BLOCK} chips; "
+          f"the last 8000 equal the planted bits from bit {offs[0]}")
+    for key, period in (("dpll", 100.3), ("dpll16", 16.0)):
+        per = outs[key][-1]["out1"][0][-1].item()
+        ev = outs[key][-1]["out2"]
+        check(abs(per - period) < 1.0 and int(ev[1]) > 0,
+              f"DPLL {key}: estimate {per} for period {period}")
+        print(f"DPLL at period {period}: estimate {per:.4f} after "
+              f"{N_BLOCKS} blocks, {int(ev[1])} events in the last")
+
+
+def decoders_path(dev):
+    """The decoders path: each decoder a one-block graph over 8 blocks of
+    2^14, counted like phase 3 (one launch a block each); every planted
+    ACARS packet found with its bytes and no parity error (one printed
+    through utils/acars.py), the Manchester bits after the resync equal
+    to the planted ones, both DPLL estimates within 1.0 of their period;
+    blocks 0-1 of each against the port on the CPU bit for bit. Timed and
+    profiled."""
+    feeds, pays, data = decoder_scene(dev)
+    graphs = decoder_graphs(dev)
+    runs = {}
+
+    def run_all():
+        for key, fg in graphs.items():
+            runs[key] = run_inputs(fg, [dict(iq=x) for x in feeds[key]],
+                                   DEC_RATE[key])
+    reset_launches()
+    run_all()
+    launches = launch_counts()
+    want = dict(acars_fsm=N_BLOCKS, manchester_fsm=N_BLOCKS,
+                dpll_walk=2 * N_BLOCKS)
+    print(f"decoders path launches over {N_BLOCKS} blocks a graph: "
+          f"{launches}")
+    for name, n in launches.items():
+        check(n == want.get(name, 0),
+              f"decoders path launched {name} {n} times")
+    check_decoder_outputs({k: r[0] for k, r in runs.items()}, pays, data)
+    # blocks 0-1 against the CPU
+    cpu = decoder_graphs("cpu")
+    for key, fg in cpu.items():
+        co, _, cs = run_inputs(fg, [dict(iq=x.cpu()) for x in feeds[key][:2]],
+                               DEC_RATE[key])
+        go, _, gs = runs[key]
+        for b in range(2):
+            for port, (gd, gc) in go[b].items():
+                cd, cc = co[b][port]
+                check(int(gc) == int(cc) and same_bits(gd, cd),
+                      f"{key} {port} block {b}: card and CPU differ")
+            check(same_state(gs[b][key], cs[b][key]),
+                  f"{key} block {b}: state, card and CPU differ")
+    print("decoders path blocks 0-1, card vs CPU: outputs, counts and "
+          "states bit-equal (ACARS, Manchester, both DPLLs)")
+    for key, kern in (("acars", "acars_kernel"),
+                      ("manchester", "manchester_kernel"),
+                      ("dpll", "dpll_kernel")):
+        time_path(key, graphs[key], feeds[key], DEC_RATE[key], DEC_BLOCK,
+                  "Msamp/s", kernels=(kern,))
+    return launches
+
+
+# sample rates of the decoders' inputs: ACARS's 2400 bit/s air interface,
+# a Manchester chip stream, pulse trains
+DEC_RATE = dict(acars=2400.0, manchester=1e6, dpll=1e6, dpll16=1e6)
+
+
+# ---------------------------------------------------------------------------
 # the small blocks of ops/basic.py and ops/misc.py
 # ---------------------------------------------------------------------------
 
@@ -2355,6 +2950,10 @@ def main() -> int:
         launches[name] = burst_launches[name]
     launches["vrr_walk"] = am_path(dev)["vrr_walk"]
     launches["fastrak_fsm"] = fastrak_path(dev)["fastrak_fsm"]
+    launches["viterbi"] = fec_path(dev)["viterbi"]
+    dec_launches = decoders_path(dev)
+    for name in DECODE_KERNELS:
+        launches[name] = dec_launches[name]
     small_blocks_phase(dev)
 
     table = []

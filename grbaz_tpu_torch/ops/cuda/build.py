@@ -27,7 +27,8 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 KERNEL_SOURCES = ("xlating_fir", "fir_decimate", "xlating_fir_ctaps",
-                  "peak_fsm", "channel_bank", "fastrak_fsm", "vrr_walk")
+                  "peak_fsm", "channel_bank", "fastrak_fsm", "vrr_walk",
+                  "viterbi", "acars_fsm", "manchester_fsm", "dpll_walk")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -106,3 +107,28 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def chain_step_ns(lib: ctypes.CDLL, probe: str, steps: int) -> float:
+    """(Benchmark hook.) ns of one dependent step of a serial kernel on
+    the current card: ``lib.<probe>(k, out, stream)`` runs k steps of the
+    kernel's step alone; timed with CUDA events over ``steps`` and
+    ``2 * steps`` steps, their difference taking out the launch."""
+    import torch
+
+    out = torch.empty(256, dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(k):
+        check(getattr(lib, probe)(k, out.data_ptr(), stream), probe)
+    run(1024)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for k in (steps, 2 * steps):
+        start.record()
+        run(k)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return (times[1] - times[0]) * 1e6 / steps

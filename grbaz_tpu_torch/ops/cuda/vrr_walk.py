@@ -99,23 +99,7 @@ vrr_walk.launches = 0
 
 
 def chain_step_ns(steps: int = 1 << 20) -> float:
-    """(Benchmark hook.) ns of one dependent step of the walk (a 64-bit add of a shared-memory
-    word read at the position it produced) on the current card, timed with
-    CUDA events over ``steps`` steps of one thread."""
-    out = torch.empty(1, dtype=torch.int64, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run(k):
-        build.check(_lib().vrr_chain_probe(k, out.data_ptr(), stream),
-                    "vrr_chain_probe")
-    run(1024)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    times = []
-    for k in (steps, 2 * steps):
-        start.record()
-        run(k)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return (times[1] - times[0]) * 1e6 / steps
+    """(Benchmark hook.) ns of one dependent step of the walk (a 64-bit
+    add of a shared-memory word read at the position it produced) on the
+    current card, one thread over ``steps`` steps."""
+    return build.chain_step_ns(_lib(), "vrr_chain_probe", steps)

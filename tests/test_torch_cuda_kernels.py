@@ -1007,3 +1007,165 @@ def test_vrr_walk_wrapper_counts_launches_and_rejects_bad_input(dev):
         vw.vrr_walk_kernel(x[:4], *args)
     assert vw.vrr_walk.launches == before + 1
     assert 0.1 < vw.chain_step_ns(1 << 16) < 1000.0
+
+
+# ---------------------------------------------------------------------------
+# the decoders' kernels (csrc/viterbi.cu, acars_fsm.cu, manchester_fsm.cu,
+# dpll_walk.cu)
+# ---------------------------------------------------------------------------
+
+VITERBI_CODES = {3: (0o7, 0o5), 4: (0o17, 0o13), 5: (0o23, 0o35),
+                 6: (0o53, 0o75), 7: (0o171, 0o133), 8: (0o247, 0o371),
+                 9: (0o561, 0o753)}
+
+
+def _same(a, b):
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", sorted(VITERBI_CODES))
+@pytest.mark.parametrize("t_len,noise", [(1, 0.0), (1000, 0.0),
+                                         (5000, 0.8), (3000, "ties")])
+def test_viterbi_kernel_matches_plain(dev, k, t_len, noise):
+    from grbaz_tpu_torch.ops import fec
+    from grbaz_tpu_torch.ops.cuda import viterbi as vt
+    gen = np.random.default_rng(k * 100 + t_len)
+    polys = VITERBI_CODES[k]
+    bits = gen.integers(0, 2, t_len).astype(np.uint8)
+    soft = fec.conv_encode(bits, k, polys).astype(np.float32) * 2 - 1
+    if noise == "ties":     # erasures and +-1: equal candidates
+        soft = soft * gen.integers(0, 2, soft.shape)
+    else:
+        soft = soft + noise * gen.standard_normal(soft.shape)
+    soft = torch.from_numpy(soft.astype(np.float32))
+    exp = torch.from_numpy(fec.expected_outputs(k, polys))
+    bk, pk = vt.viterbi(soft.to(dev), exp.to(dev))
+    bp, pp = fec.viterbi_plain(soft, exp)
+    torch.cuda.synchronize()
+    assert _same(bk, bp) and _same(pk, pp)
+
+
+def test_viterbi_decoder_block_entry_equals_the_cpu(dev):
+    from grbaz_tpu_torch.ops.fec import ViterbiDecoder
+    import chip_smoke
+    gen = np.random.default_rng(3)
+    _, soft = chip_smoke.soft_pairs(gen, 3 * 2000)
+    outs = []
+    for d in (dev, "cpu"):
+        blk = ViterbiDecoder(overlap=96, device=d)
+        st, out = blk.init_state(), []
+        for b in range(3):
+            st, (o,) = blk.apply(st, None, Stream.full(torch.from_numpy(
+                soft[b * 2000:(b + 1) * 2000]).to(d)))
+            out.append((o.data, st["tail"], st["warm"]))
+        outs.append(out)
+    for g, c in zip(*outs):
+        assert all(_same(a, b) for a, b in zip(g, c))
+
+
+def _serial_cases():
+    """(name, wrapper module, plain, make rows(gen, rows, n), call(fn, x,
+    st, counts), initial state(rows, dev))."""
+    import chip_smoke
+    from grbaz_tpu_torch.ops import decode
+    from grbaz_tpu_torch.ops.cuda import acars_fsm, dpll_walk, manchester_fsm
+
+    def acars_rows(gen, rows, n):
+        return chip_smoke.acars_rows(gen, rows, n, gap=(5, 40))[0]
+
+    def chips(gen, rows, n):
+        return chip_smoke.manchester_rows(gen, rows, n)[0]
+
+    def pulses(gen, rows, n):
+        return chip_smoke.pulse_rows(gen, rows, n, period=(3.0, 120.0))
+
+    def state(block):
+        return lambda rows, d: chip_smoke.rows_state(block(d), rows, d)
+    return [
+        ("acars", acars_fsm.acars_fsm, decode.acars_plain, acars_rows,
+         lambda fn, x, st, c: fn(x, st, 2),
+         state(lambda d: decode.ACARSDecoder(device=d))),
+        ("manchester", manchester_fsm.manchester_fsm,
+         decode.manchester_plain, chips,
+         lambda fn, x, st, c: fn(x, c, st, False, 16, 8),
+         state(lambda d: decode.ManchesterDecode(device=d))),
+        ("manchester original", manchester_fsm.manchester_fsm,
+         decode.manchester_plain, chips,
+         lambda fn, x, st, c: fn(x, c, st, True, 9, 3),
+         state(lambda d: decode.ManchesterDecode(device=d))),
+        ("dpll", dpll_walk.dpll_walk, decode.dpll_plain, pulses,
+         lambda fn, x, st, c: fn(x, st, 0.05, 0.05, 0.5),
+         state(lambda d: decode.DPLLBitSync(16.0, device=d))),
+        ("dpll gain 0.3", dpll_walk.dpll_walk, decode.dpll_plain, pulses,
+         lambda fn, x, st, c: fn(x, st, 0.3, 0.4, 0.3),
+         state(lambda d: decode.DPLLBitSync(40.0, device=d))),
+    ]
+
+
+@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("rows,n", [(1, 5000), (33, 3001), (64, 1 << 14)])
+def test_serial_decoder_kernels_match_plain(dev, case, rows, n):
+    name, wrapper, plain, make, call, state = _serial_cases()[case]
+    gen = np.random.default_rng(rows * 7 + case)
+    x = make(gen, rows, 2 * n)
+    counts = torch.full((rows,), n, dtype=torch.int32)
+    counts[::3] = n - 1001 if n > 1001 else 1
+    sk, sp = state(rows, dev), state(rows, "cpu")
+    for c in range(2):   # chained, the second call's counts partial
+        part = torch.from_numpy(np.ascontiguousarray(x[:, c * n:(c + 1) * n]))
+        cnt = counts if c else torch.full_like(counts, n)
+        gk = call(wrapper, part.to(dev), sk, cnt.to(dev))
+        gp = call(plain, part, sp, cnt)
+        torch.cuda.synchronize()
+        assert all(_same(a, b) for a, b in zip(gk[:-1], gp[:-1])), (name, c)
+        sk, sp = gk[-1], gp[-1]
+        assert all(_same(sk[key], sp[key]) for key in sp), (name, c)
+
+
+def test_decoder_wrappers_count_launches_and_reject_bad_input(dev):
+    from grbaz_tpu_torch.ops import decode, fec
+    from grbaz_tpu_torch.ops.cuda import (acars_fsm, dpll_walk,
+                                          manchester_fsm, viterbi)
+    import chip_smoke
+    exp = torch.from_numpy(fec.expected_outputs(7, (0o171, 0o133))).to(dev)
+    m = torch.ones(40, 2, device=dev)
+    before = viterbi.viterbi.launches
+    viterbi.viterbi(m, exp)
+    assert viterbi.viterbi.launches == before + 1
+    with pytest.raises(TypeError):
+        viterbi.viterbi_kernel(m.double(), exp)
+    with pytest.raises(ValueError, match="K from 3 to 9"):
+        viterbi.viterbi_kernel(m, torch.ones(512, 2, 2, device=dev))
+    with pytest.raises(ValueError):
+        viterbi.viterbi_kernel(m, exp.cpu())
+    assert viterbi.viterbi.launches == before + 1
+    x = torch.ones(2, 100, device=dev)
+    st = chip_smoke.rows_state(decode.ACARSDecoder(device=dev), 2, dev)
+    before = acars_fsm.acars_fsm.launches
+    acars_fsm.acars_fsm(x, st, 2)
+    assert acars_fsm.acars_fsm.launches == before + 1
+    with pytest.raises(TypeError):
+        acars_fsm.acars_fsm_kernel(x.double(), st, 2)
+    with pytest.raises(ValueError):
+        acars_fsm.acars_fsm_kernel(x, dict(st, pkt=st["pkt"][:1]), 2)
+    b = torch.ones(2, 100, dtype=torch.uint8, device=dev)
+    cnt = torch.full((2,), 100, dtype=torch.int32, device=dev)
+    st = chip_smoke.rows_state(decode.ManchesterDecode(device=dev), 2, dev)
+    before = manchester_fsm.manchester_fsm.launches
+    manchester_fsm.manchester_fsm(b, cnt, st, False, 16, 8)
+    assert manchester_fsm.manchester_fsm.launches == before + 1
+    with pytest.raises(ValueError):
+        manchester_fsm.manchester_fsm_kernel(b, cnt, st, False, 40, 8)
+    with pytest.raises(TypeError):
+        manchester_fsm.manchester_fsm_kernel(x, cnt, st, False, 16, 8)
+    st = chip_smoke.rows_state(decode.DPLLBitSync(16.0, device=dev), 2, dev)
+    before = dpll_walk.dpll_walk.launches
+    dpll_walk.dpll_walk(b, st, 0.05, 0.05, 0.5)
+    assert dpll_walk.dpll_walk.launches == before + 1
+    with pytest.raises(ValueError):
+        dpll_walk.dpll_walk_kernel(b, {k: v.cpu() for k, v in st.items()},
+                                   0.05, 0.05, 0.5)
+    assert dpll_walk.dpll_walk.launches == before + 1

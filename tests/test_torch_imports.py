@@ -40,13 +40,17 @@ def test_importing_every_module_loads_no_jax():
     assert NEW_MODULES <= loaded, NEW_MODULES - loaded
 
 
-# the modules of BASELINE configs 1, 3, 4 and 5, of the burst path, and
-# of the simple and per-sample blocks with their two kernels
+# the modules of BASELINE configs 1, 3, 4 and 5, of the burst path, of
+# the simple and per-sample blocks with their two kernels, and of the
+# decoders and FEC with their four
 NEW_MODULES = {f"grbaz_tpu_torch.{m}" for m in (
     "ops.agc", "ops.spectral", "ops.colour", "ops.segments", "ops.detect",
     "ops.doa", "models.spectral", "parallel.channel_bank", "ops.burst",
     "ops.mux", "ops.hopper", "ops.cuda.peak_fsm", "ops.basic", "ops.misc",
-    "ops.cuda.fastrak_fsm", "ops.cuda.vrr_walk")}
+    "ops.cuda.fastrak_fsm", "ops.cuda.vrr_walk", "ops.decode", "ops.fec",
+    "models.auto_fec", "models.fec_sync", "utils.acars",
+    "ops.cuda.viterbi", "ops.cuda.acars_fsm", "ops.cuda.manchester_fsm",
+    "ops.cuda.dpll_walk")}
 
 
 @pytest.mark.parametrize("path", _port_sources(),

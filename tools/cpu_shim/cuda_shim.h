@@ -1,5 +1,7 @@
-// CPU emulation of the CUDA pieces csrc/channel_bank.cu, fastrak_fsm.cu and
-// vrr_walk.cu use, for tools/cpu_shim/bank_check.py and fsm_check.py: one
+// CPU emulation of the CUDA pieces csrc/channel_bank.cu, fastrak_fsm.cu,
+// vrr_walk.cu and the decoders' kernels (viterbi.cu, acars_fsm.cu,
+// manchester_fsm.cu, dpll_walk.cu) use, for tools/cpu_shim/bank_check.py,
+// fsm_check.py and decode_check.py: one
 // std::thread a CUDA thread, blocks in turn, shared memory filled with NaN
 // before each block.
 #pragma once
@@ -117,6 +119,13 @@ inline float __int2float_rn(int v) { return (float)v; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline unsigned __brev(unsigned v) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= ((v >> i) & 1u) << (31 - i);
+  return r;
+}
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline int __float2int_rz(float v) { return (int)v; }
 inline unsigned __float2uint_rz(float v) {
