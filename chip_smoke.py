@@ -10,7 +10,10 @@ failure of which exits non-zero:
 
 1. report the card, its power limit and the versions; build the kernels;
 2. hold every kernel against its plain PyTorch version at the main
-   path's shapes (max-abs error < 1e-5 * max|plain|);
+   path's shapes (max-abs error < 1e-5 * max|plain|); K3 at every
+   constraint length from 2 to 12 and 15 (``viterbi_lengths_phase``),
+   and viterbi_decode, ViterbiDecoder and AutoFEC at K = 2 and 10 on the
+   card against the CPU;
 3. the main path: the cascade WBFM receiver at 2^20-sample blocks,
    8 chained blocks of a synthesized FM station through the Flowgraph
    step with the kernels, launch counts set to 0 just before and read
@@ -111,10 +114,13 @@ walked again, its worst case); the ratio-stream kernel at the AM path's
 The decoders' kernels: K3 (Viterbi) at [2^16, 2] (an AutoFEC block) and
 [2^16 + 96, 2] (a ViterbiDecoder block with its overlap), bits and final
 path metrics; K4-K6 (ACARS, Manchester, DPLL) at [1, 2^14] and at the JAX
-benchmark's bank [64, 2^14], outputs and the whole state; each bit-equal
-to its plain version over two chained calls, and printed beside its
-serial chain bound (steps times one dependent step, timed alone by each
-source's probe).
+benchmark's bank [64, 2^14], outputs and the whole state, K6 also on the
+decoders path's two pulse trains and on edge rows (no pulse, a pulse at
+sample 0, past 512 events, pulses at tile edges) with and without the
+fused gain product; each bit-equal to its plain version over two chained
+calls, and printed beside its serial chain bound (timed alone by each
+source's probe: K3's and K4's and K5's steps times one dependent step;
+K6's samples times a fadd plus its pulses times a pulse step).
 
 B3's row counts the launches of both its entry points and times the
 block entry point, which the cascade chain's ``FIRDecimator`` launches;
@@ -2148,6 +2154,8 @@ FEC_LOCKED = (1, True)   # the transform that undoes it
 PN_BLOCK = 1 << 20
 PN_FLIP = 0.01
 DECODE_KERNELS = ("acars_fsm", "manchester_fsm", "dpll_walk")
+# the decoders path's pulse trains: (period, the DPLL's start, its gain)
+DPLL_TRAINS = ((100.3, 97.0, 0.1), (16.0, 15.5, 0.05))
 SOH, STX, ETX, DEL = 0x01, 0x02, 0x03, 0x7F
 
 
@@ -2223,6 +2231,27 @@ def pulse_rows(rng, rows, n, period=(12.0, 130.0)):
     return out
 
 
+def dpll_edge_rows(rng, n, calls=2):
+    """[6, calls * n] uint8 pulse rows at the DPLL walk's edges, for calls
+    of n samples: no pulse at all; a pulse at each call's sample 0, then
+    every 47 samples; a pulse every 3 samples (past 512 events a call);
+    pulses at each call's tile edges (1023, 1024, 2047, 2048) and last
+    sample over a period-100 train; the decoders path's period-16 train;
+    a jittered train with missing and stray pulses."""
+    total = calls * n
+    out = np.zeros((6, total), np.uint8)
+    for c in range(calls):
+        out[1, c * n:(c + 1) * n:47] = 1
+        for j in (1023, 1024, 2047, 2048, n - 1):
+            if j < n:
+                out[3, c * n + j] = 1
+    out[2, ::3] = 1
+    out[3, 50::100] = 1
+    out[4, np.arange(0.0, total, 16.0).astype(np.int64)] = 1
+    out[5] = pulse_rows(rng, 1, total, period=(20.0, 60.0))[0]
+    return out
+
+
 def rows_state(block, rows, dev):
     """``block``'s initial state as [rows] tensors (ACARS's packet [rows,
     252])."""
@@ -2276,7 +2305,7 @@ def serial_case(name, shape, rows, n, xs, st0, call, plain, nbytes, probe,
                 kernel=lambda i: call(KERNELS[name][0][0], xs[i % 2], st0),
                 plain=lambda i: call(plain, xs[i % 2], st0),
                 check=held, iters=20, plain_iters=1, library=None,
-                nbytes=nbytes, flops=0, after=chain_bound)
+                nbytes=nbytes, flops=0, after=probe and chain_bound)
 
 
 def acars_case(dev, seed, rows, shape):
@@ -2314,20 +2343,60 @@ def manchester_case(dev, seed, rows, shape):
         mf.chain_step_ns, lambda res: res[0].to(torch.float32))
 
 
-def dpll_case(dev, seed, rows, shape):
-    rng = np.random.default_rng(seed)
-    pulses = pulse_rows(rng, rows, 2 * DEC_BLOCK)
+def dpll_case(dev, shape, pulses, period0, gain=0.05, rel=0.05, ign=0.5):
+    """K6 on the rows ``pulses`` [rows, 2 * DEC_BLOCK] uint8 as two
+    chained calls, from the periods ``period0`` [rows]. Its chain bound,
+    printed beside it: DEC_BLOCK fadd latencies plus the busiest row's
+    pulses (the mean of the two calls) times a pulse step, each timed
+    alone by its probe (``dw.fadd_step_ns``, ``dw.pulse_step_ns``)."""
+    rows = pulses.shape[0]
     xs = [torch.from_numpy(np.ascontiguousarray(
         pulses[:, c * DEC_BLOCK:(c + 1) * DEC_BLOCK])).to(dev)
         for c in range(2)]
     st0 = rows_state(decode.DPLLBitSync(16.0, device=dev), rows, dev)
-    st0["period"] = torch.from_numpy(rng.uniform(11.0, 140.0, rows).astype(
-        np.float32)).to(dev)
-    return serial_case(
+    st0["period"] = torch.as_tensor(np.asarray(period0, np.float32)).to(dev)
+    case = serial_case(
         "dpll_walk", shape, rows, DEC_BLOCK, xs, st0,
-        lambda fn, x, st: fn(x, st, 0.05, 0.05, 0.5), decode.dpll_plain,
-        rows * (6 * DEC_BLOCK + 512 * 12 + 4 + 2 * 20),
-        dw.chain_step_ns, lambda res: res[1])
+        lambda fn, x, st: fn(x, st, gain, rel, ign), decode.dpll_plain,
+        rows * (6 * DEC_BLOCK + 512 * 12 + 4 + 2 * 20), None,
+        lambda res: res[1])
+    most = float(np.mean([(pulses[:, c * DEC_BLOCK:(c + 1) * DEC_BLOCK] != 0)
+                          .sum(1).max() for c in range(2)]))
+
+    def chain_bound():
+        fadd, pulse = dw.fadd_step_ns(), dw.pulse_step_ns()
+        ms = (DEC_BLOCK * fadd + most * pulse) / 1e6
+        return (f"the walk's chain: {DEC_BLOCK} samples x {fadd:.3f} ns "
+                f"(fadd) + {most:.1f} pulses x {pulse:.3f} ns (pulse step) "
+                f"= {ms:.4f} ms")
+    case["after"] = chain_bound
+    return case
+
+
+def dpll_cases(dev):
+    """K6 at the decoders path's [1, 2^14] (a random train, PR 10's row;
+    the path's two trains), the JAX benchmark's bank [64, 2^14] and the
+    edge rows (``dpll_edge_rows``) with and without the fused gain
+    product."""
+    cases = []
+    for seed, rows, shape in ((37, 1, "decoders path"),
+                              (38, DEC_BANK, "decoder bank")):
+        rng = np.random.default_rng(seed)
+        pulses = pulse_rows(rng, rows, 2 * DEC_BLOCK)
+        cases.append(dpll_case(dev, shape, pulses,
+                               rng.uniform(11.0, 140.0, rows)))
+    for period, start, gain in DPLL_TRAINS:
+        train = np.zeros((1, 2 * DEC_BLOCK), np.uint8)
+        train[0, np.arange(0.0, 2 * DEC_BLOCK, period).astype(np.int64)] = 1
+        cases.append(dpll_case(dev, f"the path's train, period {period}",
+                               train, [start], gain))
+    edge = dpll_edge_rows(np.random.default_rng(39), DEC_BLOCK)
+    starts = [16.0, 47.0, 3.0, 100.0, 16.0, 40.0]
+    cases.append(dpll_case(dev, "edge rows, gain = limit = 0.05 (fused)",
+                           edge, starts))
+    cases.append(dpll_case(dev, "edge rows, gain 0.3, limit 0.4", edge,
+                           starts, 0.3, 0.4, 0.3))
+    return cases
 
 
 def fec_bits(rng, n):
@@ -2386,16 +2455,91 @@ def viterbi_case(dev, seed, overlap, shape):
 
 
 def decode_kernel_cases(dev):
-    """K3 at an AutoFEC block and a ViterbiDecoder block; K4-K6 at the
-    decoders path's [1, 2^14] and the JAX benchmark's bank [64, 2^14]."""
+    """K3 at an AutoFEC block and a ViterbiDecoder block; K4 and K5 at the
+    decoders path's [1, 2^14] and the JAX benchmark's bank [64, 2^14]; K6
+    as ``dpll_cases``."""
     return [viterbi_case(dev, 31, 0, "AutoFEC block"),
             viterbi_case(dev, 32, FEC_OVERLAP, "ViterbiDecoder block"),
             acars_case(dev, 33, 1, "decoders path"),
             acars_case(dev, 34, DEC_BANK, "decoder bank"),
             manchester_case(dev, 35, 1, "decoders path"),
             manchester_case(dev, 36, DEC_BANK, "decoder bank"),
-            dpll_case(dev, 37, 1, "decoders path"),
-            dpll_case(dev, 38, DEC_BANK, "decoder bank")]
+            *dpll_cases(dev)]
+
+
+# K3 at every constraint length: polynomials with bit K - 1 set
+VITERBI_CODES = {2: (0o3, 0o2), 3: (0o7, 0o5), 4: (0o17, 0o13),
+                 5: (0o23, 0o35), 6: (0o53, 0o75), 7: (0o171, 0o133),
+                 8: (0o247, 0o371), 9: (0o561, 0o753), 10: (0o1167, 0o1545),
+                 11: (0o2335, 0o3661), 12: (0o4335, 0o5723),
+                 15: (0o46321, 0o51271)}
+
+
+def coded_pairs(rng, t_len, k, polys, noise=0.7):
+    """[t_len, 2] float32 soft pairs of random bits through the (k,
+    polys) encoder with noise, every tenth pair erased (0, 0): ties."""
+    bits = rng.integers(0, 2, t_len).astype(np.uint8)
+    soft = fec.conv_encode(bits, k, polys).astype(np.float32) * 2 - 1
+    soft = soft + noise * rng.standard_normal(soft.shape)
+    soft[rng.random(t_len) < 0.1] = 0.0
+    return soft.astype(np.float32)
+
+
+def viterbi_lengths_phase(dev):
+    """K3 at every K of VITERBI_CODES: one pair, and 3000 pairs (T not a
+    multiple of the traceback chunk; 1000 at K = 15), bits and final path
+    metrics bit-equal to the plain version, each launch timed. Then
+    viterbi_decode, ViterbiDecoder (three blocks) and AutoFEC (two
+    blocks) at K = 2 and 10 on the card, bit-equal to the port on the
+    CPU."""
+    rng = np.random.default_rng(53)
+    for k, polys in VITERBI_CODES.items():
+        exp = torch.from_numpy(fec.expected_outputs(k, polys))
+        for t_len in (1, 1000 if k >= 15 else 3000):
+            soft = torch.from_numpy(coded_pairs(rng, t_len, k, polys))
+            (bk, pk), (bp, pp) = (vt.viterbi(soft.to(dev), exp.to(dev)),
+                                  fec.viterbi_plain(soft, exp))
+            torch.cuda.synchronize()
+            check(same_bits(bk, bp) and same_bits(pk, pp),
+                  f"viterbi K={k} T={t_len}: bits or path metrics differ "
+                  "from the plain version")
+        x, e = soft.to(dev), exp.to(dev)
+        ms = time_ms(lambda i: vt.viterbi(x, e), 5)
+        print(f"viterbi K={k} ({len(pk)} states): T=1 and T={t_len} "
+              f"bit-equal to the plain version; {ms:.4f} ms a launch at "
+              f"T={t_len} ({1e6 * ms / t_len:.1f} ns a step)")
+    for k in (2, 10):
+        polys = VITERBI_CODES[k]
+        soft = coded_pairs(rng, 3 * 2000, k, polys, noise=0.5)
+        got = fec.viterbi_decode(torch.from_numpy(soft).to(dev), k, polys)
+        want = fec.viterbi_decode(torch.from_numpy(soft), k, polys)
+        check(same_bits(got, want), f"viterbi_decode K={k}: card and CPU")
+        blocks = [torch.from_numpy(soft[b * 2000:(b + 1) * 2000])
+                  for b in range(3)]
+        outs = {}
+        for d in (dev, "cpu"):
+            blk = ViterbiDecoder(k, polys, overlap=64, device=d)
+            st, outs[d] = blk.init_state(), []
+            for x in blocks:
+                st, (o,) = blk.apply(st, None, Stream.full(x.to(d)))
+                outs[d].append((o.data, st["tail"]))
+        check(all(same_bits(a, b) for g, c in zip(outs[dev], outs["cpu"])
+                  for a, b in zip(g, c)),
+              f"ViterbiDecoder K={k}: card and CPU differ")
+        sym = torch.complex(torch.from_numpy(soft[:, 0]),
+                            torch.from_numpy(soft[:, 1]))
+        fed = {}
+        for d in (dev, "cpu"):
+            afec = AutoFEC(k=k, polys=polys, device=d)
+            fed[d] = [afec.feed(sym[b * 2000:(b + 1) * 2000])
+                      for b in range(2)]
+        check(all(same_bits(g[0], c[0]) and g[1:] == c[1:]
+                  for g, c in zip(fed[dev], fed["cpu"])),
+              f"AutoFEC K={k}: card and CPU differ")
+        print(f"K={k} on the card: viterbi_decode (6000 pairs), "
+              "ViterbiDecoder (3 blocks of 2000, overlap 64) and AutoFEC "
+              f"(2 blocks, BER {[round(f[1], 5) for f in fed[dev]]}) "
+              "bit-equal to the CPU")
 
 
 def fec_scene(dev, blocks):
@@ -2502,7 +2646,7 @@ def fec_path(dev):
           "CPU")
     pn_ber_phase(dev)
     time_path("viterbi_decoder", one_block_graph(vdec), xs, 72e3, FEC_BLOCK,
-              "Mbit/s", kernels=("viterbi_kernel",))
+              "Mbit/s", kernels=("viterbi_warp", "trace_map", "trace_bits"))
     return launches
 
 
@@ -2906,6 +3050,7 @@ def main() -> int:
 
     cases = kernel_cases(dev)
     check_kernels(cases)
+    viterbi_lengths_phase(dev)
 
     iq = synth_fm(N_BLOCKS * BLOCK, dev)
     cfg, kern, launches = main_path(dev, iq)

@@ -101,3 +101,79 @@ def block_from_fn(fn: Callable = None, *, n_in: int = 1, n_out: int = 1,
         return make
 
     return wrap(fn) if fn is not None else wrap
+
+
+class AnyBlock(Block):
+    """A user-supplied function as a graph node, the "any block" escape
+    hatch (``baz_any_source``/``sink``/``block`` and ``baz_any_code`` let
+    users type raw code into GRC; here the user supplies the function).
+
+    ``fn(state, params, *ins) -> (state', Stream | (Stream, ...))`` runs
+    inside the graph step like any built-in block; ``init_state`` and
+    ``init_params`` are values or zero-argument callables.
+    """
+
+    def __init__(self, fn: Callable, init_state=None, init_params=None,
+                 n_in: int = 1, n_out: int = 1, name: str | None = None):
+        super().__init__(name or getattr(fn, "__name__", "any"))
+        self.fn = fn
+        self._init_state = init_state
+        self._init_params = init_params
+        self.n_in = n_in
+        self.n_out = n_out
+
+    def init_state(self):
+        s = self._init_state
+        return s() if callable(s) else s
+
+    def init_params(self):
+        p = self._init_params
+        return p() if callable(p) else p
+
+    def apply(self, state, params, *ins: Stream):
+        state, outs = self.fn(state, params, *ins)
+        if isinstance(outs, Stream):
+            outs = (outs,)
+        return state, tuple(outs)
+
+
+def any_code(source: str, n_in: int = 1, n_out: int = 1,
+             name: str | None = None) -> Block:
+    """A block from a source string (the ``baz_any_code`` capability), in
+    the reference's two modes:
+
+    * an *expression* over ``x`` (and ``x0``, ``x1``, ...) becomes a
+      stateless element-wise block: ``any_code("torch.abs(x) ** 2")``;
+    * a *code block* defining ``apply(state, params, *ins)`` and
+      optionally ``init_state()`` / ``init_params()`` becomes an
+      :class:`AnyBlock`.
+
+    The namespace holds ``torch``, ``np`` and ``Stream`` (the JAX
+    package's holds ``jax`` and ``jnp`` in torch's place).
+    """
+    import numpy as np
+    import torch
+
+    ns = {"torch": torch, "np": np, "Stream": Stream}
+    try:
+        code = compile(source, "<any_code>", "eval")
+        is_expr = True
+    except SyntaxError:
+        code = compile(source, "<any_code>", "exec")
+        is_expr = False
+
+    if is_expr:
+        def fn(*datas):
+            local = dict(ns, x=datas[0])
+            local.update((f"x{i}", d) for i, d in enumerate(datas))
+            return eval(code, local)  # noqa: S307 - the escape hatch
+        fn.__name__ = name or "any_code"
+        return FnBlock(fn, n_in=n_in, n_out=n_out, name=name)
+
+    exec(code, ns)  # noqa: S102 - the escape hatch
+    if "apply" not in ns:
+        raise ValueError("any_code source must define "
+                         "apply(state, params, *ins)")
+    return AnyBlock(ns["apply"], init_state=ns.get("init_state"),
+                    init_params=ns.get("init_params"), n_in=n_in,
+                    n_out=n_out, name=name or "any_code")

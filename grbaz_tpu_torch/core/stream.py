@@ -146,6 +146,18 @@ class StreamMeta:
     def with_rate(self, sample_rate: float) -> "StreamMeta":
         return dataclasses.replace(self, sample_rate=float(sample_rate))
 
+    def time_of_first_sample(self) -> torch.Tensor:
+        """Absolute time (float32 seconds, approximate) of sample 0:
+        ``hi * 2^32 + lo``, then epoch + fraction + index / rate, each
+        step rounded to float32 as the JAX package rounds it. For exact
+        timing use (epoch, abs limbs) directly."""
+        f32 = torch.float32
+        idx = self.abs_hi.to(f32) * torch.tensor(2.0 ** 32, dtype=f32) \
+            + self.abs_lo.to(f32)
+        rate = torch.tensor(self.sample_rate, dtype=f32,
+                            device=idx.device)
+        return self.epoch_sec.to(f32) + self.epoch_frac + idx / rate
+
 
 @dataclasses.dataclass
 class Stream:

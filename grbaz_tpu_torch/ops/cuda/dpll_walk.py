@@ -7,8 +7,12 @@ Replaces the per-sample ``lax.scan`` of ``DPLLBitSync.apply``
 (``period``, ``phase`` float32; :data:`.decode.DPLL_INTS` int32) and
 returns (pulses [B, n] uint8, period estimates [B, n] float32, events
 [B, 512, 3] float32, event count [B] int32, the new state). On the card it
-launches the kernel, one thread a row with every float32 rounding written
-out as XLA compiles the JAX scan on the CPU; on the CPU it runs
+launches the kernel, one warp a row, with every float32 rounding written
+out as XLA compiles the JAX scan on the CPU: the warp stages the row in
+tiles (four samples a lane, two tiles ahead) as a list of pulses, walks
+it pulse to pulse (the phase's fadd chain between pulses, the divisions
+only on a pulse) and writes the period estimates from each tile's
+pulses; on the CPU it runs
 :func:`.decode.dpll_plain`.
 """
 
@@ -27,9 +31,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-_SIGNATURES = {"dpll_walk": [_P, _I, _I, _P, _P, _F, _F, _F, _F, _F, _I, _P,
-                             _P, _P, _P, _P, _P, _P],
-               "dpll_chain_probe": [_I, _P, _P]}
+_SIGNATURES = {"dpll_walk": [_P, _I, _I, _I, _P, _P, _F, _F, _F, _F, _F, _I,
+                             _P, _P, _P, _P, _P, _P, _P],
+               "dpll_fadd_probe": [_I, _P, _P],
+               "dpll_pulse_probe": [_I, _P, _P]}
 
 
 def _lib():
@@ -57,7 +62,8 @@ def _launch(lib, pulses, state, gain, relative_limit, ignore_limit, stream):
     fout, iout = torch.empty_like(fin), torch.empty_like(iin)
     f = np.float32
     err = lib.dpll_walk(
-        x.data_ptr(), n, rows, fin.data_ptr(), iin.data_ptr(),
+        x.data_ptr(), n, rows, int(n % 4 == 0 and x.data_ptr() % 4 == 0),
+        fin.data_ptr(), iin.data_ptr(),
         f(1.0 - gain), f(gain), f(1.0 - relative_limit),
         f(1.0 + relative_limit), f(ignore_limit),
         int(dpll_fuses_gain(gain, relative_limit)), p_out.data_ptr(),
@@ -80,7 +86,7 @@ def dpll_walk_kernel(pulses: torch.Tensor, state: dict, gain: float,
     if not pulses.is_cuda:
         raise ValueError("pulses must lie on a CUDA device")
     rows, n = pulses.shape
-    if n < 1 or n >= 2 ** 31 or rows < 1 or rows >= 2 ** 31:
+    if n < 1 or n >= 2 ** 31 - 4096 or rows < 1 or rows >= 2 ** 31:
         raise ValueError(f"rows of shape {tuple(pulses.shape)} are not "
                          "walkable")
     for k, v in state.items():
@@ -106,8 +112,14 @@ def dpll_walk(pulses: torch.Tensor, state: dict, gain: float,
 dpll_walk.launches = 0
 
 
-def chain_step_ns(steps: int = 1 << 20) -> float:
-    """(Benchmark hook.) ns of a step of the float walk alone (the source's
-    ``dpll_chain_probe``, its inputs from shared memory) on one thread of the
-    current card."""
-    return build.chain_step_ns(_lib(), "dpll_chain_probe", steps)
+def fadd_step_ns(steps: int = 1 << 20) -> float:
+    """(Benchmark hook.) ns of a sample between pulses, the phase's fadd
+    chain alone (the source's ``dpll_fadd_probe``) on the current card."""
+    return build.chain_step_ns(_lib(), "dpll_fadd_probe", steps)
+
+
+def pulse_step_ns(steps: int = 1 << 16) -> float:
+    """(Benchmark hook.) ns of a pulse step alone (the source's
+    ``dpll_pulse_probe``: the ratio's division, the clamp, the update and
+    the new period's reciprocal, back to back) on the current card."""
+    return build.chain_step_ns(_lib(), "dpll_pulse_probe", steps)

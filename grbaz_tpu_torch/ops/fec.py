@@ -336,7 +336,10 @@ class ViterbiDecoder(Block):
     block is decoded with the last ``overlap`` soft pairs of the stream in
     front of it (the traceback's warm-up) and the whole padded block
     decoded, as in the JAX package, so its output matches the JAX block
-    block by block."""
+    block by block. With ``overlap=0`` the reference's slices
+    ``bits[0:]`` and ``ext[-0:]`` carry the whole extended block: the
+    tail grows by a block every step, and the n-th block emits n blocks'
+    bits. The port does the same."""
 
     def __init__(self, k: int = 7, polys=(0o171, 0o133), overlap: int = 96,
                  name=None, device="cuda"):
@@ -358,7 +361,7 @@ class ViterbiDecoder(Block):
         # x.data: [N, 2] soft pairs
         ext = torch.cat([state["tail"], x.data.to(torch.float32)])
         bits = viterbi(ext, self._exp)[0]
-        new_state = dict(tail=ext[ext.shape[0] - self.overlap:],
+        new_state = dict(tail=ext[-self.overlap:],
                          warm=torch.clamp(state["warm"] + 1, max=1000))
         return new_state, (x.like(bits[self.overlap:], count=x.count),)
 

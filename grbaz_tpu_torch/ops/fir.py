@@ -125,6 +125,24 @@ def fir_decimate_frame(frame: torch.Tensor, h_rev_pad: torch.Tensor,
     return _band_sum(z.to(torch.float32) @ h2t, n_out).to(frame.dtype)
 
 
+def fir_decimate_frame_windows(frame: torch.Tensor, h_rev_pad: torch.Tensor,
+                               decim: int) -> torch.Tensor:
+    """The strided-window form of :func:`fir_decimate_frame`: the
+    [n_out, tpad] windows ``frame[k*decim : k*decim + tpad]`` as an
+    ``unfold`` view times the taps (complex frames as two real planes).
+    The frame's new samples must be a multiple of ``decim``."""
+    tpad = h_rev_pad.shape[0]
+    n_new = frame.shape[0] - (tpad - 1)
+    if n_new % decim:
+        raise ValueError("block size must be a multiple of decim")
+    n_out = n_new // decim
+    h = h_rev_pad.to(torch.float32)
+    if frame.is_complex():
+        return torch.complex(frame.real.unfold(0, tpad, decim)[:n_out] @ h,
+                             frame.imag.unfold(0, tpad, decim)[:n_out] @ h)
+    return frame.unfold(0, tpad, decim)[:n_out] @ h_rev_pad.to(frame.dtype)
+
+
 def fir_decimate_tail_block(tail: torch.Tensor, x: torch.Tensor,
                             h_rev_pad: torch.Tensor,
                             decim: int) -> torch.Tensor:

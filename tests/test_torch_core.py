@@ -117,3 +117,89 @@ def test_block_base_contract():
         blk(tstream.Stream.full(torch.zeros(3)))
     auto = tblock.FnBlock(lambda x: x)
     assert auto.name != tblock.FnBlock(lambda x: x).name
+
+
+@pytest.mark.parametrize("abs_index", [0, 2 ** 32 - 3, 2 ** 32, 2 ** 32 + 7,
+                                       5 * 2 ** 32 + 12345])
+@pytest.mark.parametrize("rate,epoch", [(48e3, (0, 0.0)),
+                                        (3.2e6, (1700000000, 0.625)),
+                                        (1.0 / 3.0, (12, 0.1))])
+def test_time_of_first_sample_matches_jax(abs_index, rate, epoch):
+    sec, frac = epoch
+    jm = jstream.StreamMeta.start(rate, abs_index=abs_index, epoch_sec=sec,
+                                  epoch_frac=frac)
+    tm = tstream.StreamMeta.start(rate, abs_index=abs_index, epoch_sec=sec,
+                                  epoch_frac=frac, device=CPU)
+    for _ in range(3):
+        want = np.asarray(jm.time_of_first_sample())
+        got = tm.time_of_first_sample()
+        assert got.dtype == torch.float32
+        assert np.array_equal(want.view(np.int32),
+                              got.numpy().view(np.int32))
+        jm, tm = jm.advanced(2 ** 31 + 1), tm.advanced(2 ** 31 + 1)
+
+
+def _jax_and_port_streams():
+    x = np.array([3.0, -4.0], np.float32)
+    return (jstream.Stream(data=jnp.asarray(x), count=jnp.int32(2),
+                           meta=jstream.StreamMeta.start(1e3)),
+            tstream.Stream(data=torch.from_numpy(x),
+                           count=torch.tensor(2, dtype=torch.int32),
+                           meta=tstream.StreamMeta.start(1e3, device=CPU)))
+
+
+def test_any_block_stateful_matches_jax():
+    # tests/test_viz_compat.py: test_any_block_stateful, on both packages
+    def jaccum(state, params, x):
+        return state + jnp.sum(x.data), x.like(x.data * params["k"])
+
+    def taccum(state, params, x):
+        return state + torch.sum(x.data), x.like(x.data * params["k"])
+
+    jb = jblock.AnyBlock(jaccum, init_state=lambda: jnp.float32(0),
+                         init_params=lambda: dict(k=jnp.float32(2.0)))
+    tb = tblock.AnyBlock(taccum, init_state=lambda: torch.tensor(0.0),
+                         init_params=dict(k=torch.tensor(2.0)))
+    assert tb.name == "taccum" and (tb.n_in, tb.n_out) == (1, 1)
+    jx, tx = _jax_and_port_streams()
+    js, (jy,) = jb.apply(jb.init_state(), jb.init_params(), jx)
+    ts, (ty,) = tb.apply(tb.init_state(), tb.init_params(), tx)
+    assert float(ts) == float(js) == -1.0
+    np.testing.assert_array_equal(ty.data.numpy(), np.asarray(jy.data))
+    assert int(ty.count) == int(jy.count)
+
+
+_ANY_CODE = """
+def init_state():
+    return {zero}
+
+def apply(state, params, x):
+    return state + 1, x.like(x.data + state)
+"""
+
+
+@pytest.mark.parametrize("expr", [("jnp.abs(x) ** 2", "torch.abs(x) ** 2"),
+                                  ("x * 2 + 1", "x * 2 + 1"),
+                                  ("np.float32(3) - x", "np.float32(3) - x")])
+def test_any_code_expression_matches_jax(expr):
+    jx, tx = _jax_and_port_streams()
+    _, (jy,) = jblock.any_code(expr[0])(jx)
+    blk = tblock.any_code(expr[1])
+    assert isinstance(blk, tblock.FnBlock)
+    _, (ty,) = blk(tx)
+    np.testing.assert_array_equal(ty.data.numpy(), np.asarray(jy.data))
+
+
+def test_any_code_block_matches_jax():
+    jx, tx = _jax_and_port_streams()
+    jb = jblock.any_code(_ANY_CODE.format(zero="jnp.float32(0)"))
+    tb = tblock.any_code(_ANY_CODE.format(zero="torch.tensor(0.0)"))
+    assert isinstance(tb, tblock.AnyBlock) and tb.name == "any_code"
+    js, ts = jb.init_state(), tb.init_state()
+    for _ in range(3):
+        js, (jy,) = jb.apply(js, None, jx)
+        ts, (ty,) = tb.apply(ts, None, tx)
+        np.testing.assert_array_equal(ty.data.numpy(), np.asarray(jy.data))
+    assert float(ts) == float(js) == 3.0
+    with pytest.raises(ValueError, match="apply"):
+        tblock.any_code("y = 1")

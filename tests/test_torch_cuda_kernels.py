@@ -1014,9 +1014,12 @@ def test_vrr_walk_wrapper_counts_launches_and_rejects_bad_input(dev):
 # dpll_walk.cu)
 # ---------------------------------------------------------------------------
 
-VITERBI_CODES = {3: (0o7, 0o5), 4: (0o17, 0o13), 5: (0o23, 0o35),
-                 6: (0o53, 0o75), 7: (0o171, 0o133), 8: (0o247, 0o371),
-                 9: (0o561, 0o753)}
+# polynomials with bit K - 1 set; K = 2 to 9 on the warp form, 10 and up
+# on the block form
+VITERBI_CODES = {2: (0o3, 0o2), 3: (0o7, 0o5), 4: (0o17, 0o13),
+                 5: (0o23, 0o35), 6: (0o53, 0o75), 7: (0o171, 0o133),
+                 8: (0o247, 0o371), 9: (0o561, 0o753), 10: (0o1167, 0o1545),
+                 11: (0o2335, 0o3661), 12: (0o4335, 0o5723)}
 
 
 def _same(a, b):
@@ -1028,12 +1031,23 @@ def _same(a, b):
 
 @pytest.mark.parametrize("k", sorted(VITERBI_CODES))
 @pytest.mark.parametrize("t_len,noise", [(1, 0.0), (1000, 0.0),
-                                         (5000, 0.8), (3000, "ties")])
+                                         (5000, 0.8), (3000, "ties"),
+                                         (1024, 0.8)])
 def test_viterbi_kernel_matches_plain(dev, k, t_len, noise):
+    _viterbi_against_plain(dev, k, VITERBI_CODES[k], t_len, noise)
+
+
+@pytest.mark.parametrize("t_len,noise", [(1, 0.0), (300, "ties"),
+                                         (700, 0.8)])
+def test_viterbi_kernel_matches_plain_at_k15(dev, t_len, noise):
+    # 2^14 states: the block form's metrics fill 128 KB of shared memory
+    _viterbi_against_plain(dev, 15, (0o46321, 0o51271), t_len, noise)
+
+
+def _viterbi_against_plain(dev, k, polys, t_len, noise):
     from grbaz_tpu_torch.ops import fec
     from grbaz_tpu_torch.ops.cuda import viterbi as vt
     gen = np.random.default_rng(k * 100 + t_len)
-    polys = VITERBI_CODES[k]
     bits = gen.integers(0, 2, t_len).astype(np.uint8)
     soft = fec.conv_encode(bits, k, polys).astype(np.float32) * 2 - 1
     if noise == "ties":     # erasures and +-1: equal candidates
@@ -1064,6 +1078,38 @@ def test_viterbi_decoder_block_entry_equals_the_cpu(dev):
         outs.append(out)
     for g, c in zip(*outs):
         assert all(_same(a, b) for a, b in zip(g, c))
+
+
+@pytest.mark.parametrize("k", [2, 10])
+def test_fec_entry_points_run_on_the_card_at_k2_and_k10(dev, k):
+    from grbaz_tpu_torch.models.auto_fec import AutoFEC
+    from grbaz_tpu_torch.ops import fec
+    import chip_smoke
+    polys = VITERBI_CODES[k]
+    soft = chip_smoke.coded_pairs(np.random.default_rng(k), 3 * 1500, k,
+                                  polys, noise=0.5)
+    assert _same(fec.viterbi_decode(torch.from_numpy(soft).to(dev), k, polys),
+                 fec.viterbi_decode(torch.from_numpy(soft), k, polys))
+    outs = []
+    for d in (dev, "cpu"):
+        blk = fec.ViterbiDecoder(k, polys, overlap=40, device=d)
+        st, out = blk.init_state(), []
+        for b in range(3):
+            st, (o,) = blk.apply(st, None, Stream.full(torch.from_numpy(
+                soft[b * 1500:(b + 1) * 1500]).to(d)))
+            out.append((o.data, st["tail"]))
+        outs.append(out)
+    for g, c in zip(*outs):
+        assert all(_same(a, b) for a, b in zip(g, c))
+    sym = torch.complex(torch.from_numpy(soft[:, 0]),
+                        torch.from_numpy(soft[:, 1]))
+    fed = []
+    for d in (dev, "cpu"):
+        afec = AutoFEC(k=k, polys=polys, device=d)
+        fed.append([afec.feed(sym[b * 1500:(b + 1) * 1500])
+                    for b in range(3)])
+    for g, c in zip(*fed):
+        assert _same(g[0], c[0]) and g[1:] == c[1:]
 
 
 def _serial_cases():
@@ -1137,11 +1183,17 @@ def test_decoder_wrappers_count_launches_and_reject_bad_input(dev):
     assert viterbi.viterbi.launches == before + 1
     with pytest.raises(TypeError):
         viterbi.viterbi_kernel(m.double(), exp)
-    with pytest.raises(ValueError, match="K from 3 to 9"):
-        viterbi.viterbi_kernel(m, torch.ones(512, 2, 2, device=dev))
+    # K = 10 decodes (the block form) and equals the plain version; a
+    # trellis whose state count is not a power of two is refused
+    exp10 = torch.from_numpy(fec.expected_outputs(10, VITERBI_CODES[10]))
+    bk, pk = viterbi.viterbi_kernel(m, exp10.to(dev))
+    bp, pp = fec.viterbi_plain(m.cpu(), exp10)
+    assert _same(bk, bp) and _same(pk, pp)
+    with pytest.raises(ValueError, match="2\\^\\(K-1\\) states"):
+        viterbi.viterbi_kernel(m, torch.ones(384, 2, 2, device=dev))
     with pytest.raises(ValueError):
         viterbi.viterbi_kernel(m, exp.cpu())
-    assert viterbi.viterbi.launches == before + 1
+    assert viterbi.viterbi.launches == before + 2
     x = torch.ones(2, 100, device=dev)
     st = chip_smoke.rows_state(decode.ACARSDecoder(device=dev), 2, dev)
     before = acars_fsm.acars_fsm.launches
@@ -1169,3 +1221,28 @@ def test_decoder_wrappers_count_launches_and_reject_bad_input(dev):
         dpll_walk.dpll_walk_kernel(b, {k: v.cpu() for k, v in st.items()},
                                    0.05, 0.05, 0.5)
     assert dpll_walk.dpll_walk.launches == before + 1
+
+
+@pytest.mark.parametrize("gain,rel,ign", [(0.05, 0.05, 0.5), (0.3, 0.4, 0.3),
+                                          (0.1, 0.05, 0.5)])
+@pytest.mark.parametrize("n", [3000, 1 << 14])
+def test_dpll_kernel_on_edge_rows(dev, gain, rel, ign, n):
+    # no pulse, a pulse at each call's sample 0, past 512 events a call,
+    # pulses at the walk's tile edges; with and without the fused product
+    from grbaz_tpu_torch.ops import decode
+    from grbaz_tpu_torch.ops.cuda import dpll_walk
+    import chip_smoke
+    x = chip_smoke.dpll_edge_rows(np.random.default_rng(n), n)
+    rows = len(x)
+    sk = chip_smoke.rows_state(decode.DPLLBitSync(16.0, device=dev), rows, dev)
+    sk["period"] = torch.tensor([16.0, 47.0, 3.0, 100.0, 16.0, 40.0],
+                                device=dev)
+    sp = {k: v.cpu() for k, v in sk.items()}
+    for c in range(2):
+        part = torch.from_numpy(np.ascontiguousarray(x[:, c * n:(c + 1) * n]))
+        gk = dpll_walk.dpll_walk(part.to(dev), sk, gain, rel, ign)
+        gp = decode.dpll_plain(part, sp, gain, rel, ign)
+        torch.cuda.synchronize()
+        assert all(_same(a, b) for a, b in zip(gk[:-1], gp[:-1])), c
+        sk, sp = gk[-1], gp[-1]
+        assert all(_same(sk[key], sp[key]) for key in sp), c

@@ -38,10 +38,11 @@ def jax_path_metrics(metrics, k, polys):
     return np.asarray(jax.lax.scan(acs, pm0, jnp.asarray(metrics))[0])
 
 
-CODES = {5: (0o23, 0o35), 7: (0o171, 0o133)}
+CODES = {2: (0o3, 0o2), 5: (0o23, 0o35), 7: (0o171, 0o133),
+         10: (0o1167, 0o1545)}
 
 
-@pytest.mark.parametrize("k", [5, 7])
+@pytest.mark.parametrize("k", [2, 5, 7, 10])
 @pytest.mark.parametrize("noise", [0.0, 0.7])
 def test_viterbi_plain_matches_jax(k, noise):
     rng = np.random.default_rng(k * 10 + int(noise * 10))
@@ -201,3 +202,16 @@ def test_fec_states_carry_across_packages(blk, args):
     back = to_numpy(tb.init_state())
     for k, v in jb.init_state().items():
         assert back[k].dtype == np.asarray(v).dtype and same(back[k], v), k
+
+
+def test_viterbi_decoder_without_overlap_carries_the_whole_block():
+    # the reference's bits[0:] and ext[-0:]: blocks of N, 2N and 3N bits
+    rng = np.random.default_rng(9)
+    bits = rng.integers(0, 2, 3 * 64).astype(np.uint8)
+    soft = (jf.conv_encode(bits).astype(np.float32) * 2 - 1
+            + 0.3 * rng.standard_normal((3 * 64, 2))).astype(np.float32)
+    blocks, counts = split(soft, 64)
+    outs = step_both(jf.ViterbiDecoder(overlap=0),
+                     tf.ViterbiDecoder(overlap=0, device="cpu"),
+                     blocks, counts)
+    assert [o[0].data.shape[0] for o in outs] == [64, 128, 192]

@@ -335,3 +335,25 @@ def test_backend_and_device_validation():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tfir.FIRDecimator(_taps(), 8)  # device="cuda" without a card
+
+
+@pytest.mark.parametrize("decim", [4, 8, 25])
+@pytest.mark.parametrize("complex_frame", [False, True])
+def test_fir_decimate_frame_windows_matches_jax(decim, complex_frame):
+    # tests/test_fir.py:test_poly_vs_windows_formulations' frames
+    rng = np.random.default_rng(7 + decim)
+    h = tfir.prepare_taps(tfir.low_pass_taps(1.0, 1e6, 1e5, 5e4), decim)
+    n = decim * 1024 + len(h) - 1
+    fr = rng.standard_normal(n).astype(np.float32)
+    if complex_frame:
+        fr = (fr + 1j * rng.standard_normal(n)).astype(np.complex64)
+    want = np.asarray(jfir.fir_decimate_frame_windows(
+        jnp.asarray(fr), jnp.asarray(h), decim))
+    got = tfir.fir_decimate_frame_windows(torch.from_numpy(fr),
+                                          torch.from_numpy(h), decim)
+    assert got.dtype == (torch.complex64 if complex_frame else torch.float32)
+    assert got.shape == want.shape == (1024,)
+    assert np.max(np.abs(got.numpy() - want)) <= 1e-5 * np.max(np.abs(want))
+    with pytest.raises(ValueError, match="multiple of decim"):
+        tfir.fir_decimate_frame_windows(torch.from_numpy(fr[1:]),
+                                        torch.from_numpy(h), decim)

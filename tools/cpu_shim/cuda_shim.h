@@ -113,6 +113,22 @@ inline unsigned __ballot_sync(unsigned, bool p) {
   return m;
 }
 inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp_sync(); }
+// redux.sync: every lane of the warp gets the reduction of all 32 values
+template <class T, class F>
+inline T shim_warp_reduce(T v, F f) {
+  T r = v;
+  for (int l = 0; l < 32; ++l) {
+    const T o = shim_from_lane(v, l);
+    if (l) r = f(r, o); else r = o;
+  }
+  return r;
+}
+inline int __reduce_max_sync(unsigned, int v) {
+  return shim_warp_reduce(v, [](int a, int b) { return a > b ? a : b; });
+}
+inline int __reduce_min_sync(unsigned, int v) {
+  return shim_warp_reduce(v, [](int a, int b) { return a < b ? a : b; });
+}
 inline int __ffs(unsigned v) { return v ? __builtin_ctz(v) + 1 : 0; }
 inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
 inline float __int2float_rn(int v) { return (float)v; }
@@ -120,6 +136,12 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline unsigned __vcmpne4(unsigned a, unsigned b) {
+  unsigned r = 0;
+  for (int j = 0; j < 4; ++j)
+    if (((a >> (8 * j)) & 0xffu) != ((b >> (8 * j)) & 0xffu)) r |= 0xffu << (8 * j);
+  return r;
+}
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline unsigned __brev(unsigned v) {
   unsigned r = 0;
@@ -136,6 +158,8 @@ using std::min;
 inline float __uint2float_rn(uint32_t v) { return (float)v; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline void sincosf(float a, float* s, float* c) { *s = std::sin(a); *c = std::cos(a); }
 inline unsigned char* shim_smem_ptr_fwd();
 inline unsigned __cvta_generic_to_shared(const void* p) { return (unsigned)((const unsigned char*)p - shim_smem_ptr_fwd()); }

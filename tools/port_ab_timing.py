@@ -3,6 +3,7 @@
 
     python3 tools/port_ab_timing.py PARENT . . PARENT
     python3 tools/port_ab_timing.py --bank DIR ...
+    python3 tools/port_ab_timing.py --decoders DIR ...
 
 Each argument is the root of a checkout (for example ``git archive`` of
 the parent commit unpacked into a git-ignored directory). In the order
@@ -16,9 +17,11 @@ step time (:func:`bank_timing`). With ``--bank``, each process builds
 only the channel bank's kernel, runs ``chip_smoke.bank_case``'s check
 (printing each error and ``held True`` or ``held False``) and times the
 kernel per launch (:func:`bank_one`; ``tools/bank_variants.py`` runs its
-mutants so). Every output line is prefixed with the checkout it came
-from; timings compare only within one call. Exits non-zero if any
-checkout's process fails.
+mutants so). With ``--decoders``, each process builds only the Viterbi
+and DPLL kernels, holds and times their cases per launch and times the
+ViterbiDecoder and DPLL graphs' steps (:func:`decoders`). Every output
+line is prefixed with the checkout it came from; timings compare only
+within one call. Exits non-zero if any checkout's process fails.
 """
 
 from __future__ import annotations
@@ -118,7 +121,47 @@ def bank_one() -> None:
           f"{times[0]:.3f} us, plain {times[1]:.3f} us", flush=True)
 
 
-JOBS = {"--one": one, "--bank-one": bank_one}
+def decoders() -> None:
+    """K3 and K6 of the checkout in the working directory: each K3 and K6
+    case of its ``chip_smoke.decode_kernel_cases`` held to its plain
+    version, then timed a launch (CUDA events, 20 launches); the
+    ViterbiDecoder step (overlap 96) over 8 blocks of 2^16 soft pairs and
+    both DPLL graphs' steps over the decoders path's trains
+    (``graph_timer``, 6 rounds of 8 steps, every output in the
+    checksum)."""
+    import numpy as np
+    import torch
+    import chip_smoke as c
+
+    dev = torch.device("cuda")
+    c.build.build_all(["viterbi", "dpll_walk"])
+    cases = [k for k in c.decode_kernel_cases(dev)
+             if k["name"] in ("viterbi", "dpll_walk")]
+    c.check_kernels(cases)
+    for k in cases:
+        us = c.time_ms(k["kernel"], 20) * 1e3
+        print(f"kernel {k['name']} [{k['shape']}] {us:.3f} us", flush=True)
+    _, soft = c.soft_pairs(np.random.default_rng(32),
+                           c.N_BLOCKS * c.FEC_BLOCK)
+    xs = [torch.from_numpy(soft[b * c.FEC_BLOCK:(b + 1) * c.FEC_BLOCK])
+          .to(dev) for b in range(c.N_BLOCKS)]
+    vdec = c.ViterbiDecoder(overlap=c.FEC_OVERLAP, name="vdec", device=dev)
+    steps("viterbi_decoder", c.graph_timer(c.one_block_graph(vdec), xs,
+                                           72e3))
+    feeds, _, _ = c.decoder_scene(dev)
+    graphs = c.decoder_graphs(dev)
+    for key in ("dpll", "dpll16"):
+        steps(key, c.graph_timer(graphs[key], feeds[key], c.DEC_RATE[key]))
+
+
+def steps(label, run, rounds=6, n=8) -> None:
+    ts = [run(n) for _ in range(rounds)]
+    print(f"{label} step ms per round (events): "
+          + ", ".join(f"{t:.4f}" for t in ts)
+          + f"; median {statistics.median(ts):.4f} ms", flush=True)
+
+
+JOBS = {"--one": one, "--bank-one": bank_one, "--decoders-one": decoders}
 
 
 def run(dirs, job="--one"):
@@ -142,6 +185,8 @@ def run(dirs, job="--one"):
 def main(args) -> int:
     if args[:1] == ["--bank"]:
         return max(rc for rc, _ in run(args[1:], "--bank-one"))
+    if args[:1] == ["--decoders"]:
+        return max(rc for rc, _ in run(args[1:], "--decoders-one"))
     return max(rc for rc, _ in run(args))
 
 
