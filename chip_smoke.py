@@ -114,13 +114,20 @@ walked again, its worst case); the ratio-stream kernel at the AM path's
 The decoders' kernels: K3 (Viterbi) at [2^16, 2] (an AutoFEC block) and
 [2^16 + 96, 2] (a ViterbiDecoder block with its overlap), bits and final
 path metrics; K4-K6 (ACARS, Manchester, DPLL) at [1, 2^14] and at the JAX
-benchmark's bank [64, 2^14], outputs and the whole state, K6 also on the
-decoders path's two pulse trains and on edge rows (no pulse, a pulse at
-sample 0, past 512 events, pulses at tile edges) with and without the
-fused gain product; each bit-equal to its plain version over two chained
-calls, and printed beside its serial chain bound (timed alone by each
-source's probe: K3's and K4's and K5's steps times one dependent step;
-K6's samples times a fadd plus its pulses times a pulse step).
+benchmark's bank [64, 2^14], outputs and the whole state; K4 also on
+noise at threshold 8 and on edge rows (packets open across the calls at
+every bit of a byte, syncs found only with the carried register, DEL at
+etx + 2, a candidate on a packet's last bit); K5 also on random chips at
+windows 1 and 31, thresholds 0 and window + 1, both ``original`` (a row
+of alternating chips past the capacity); K6 also on the decoders path's
+two pulse trains and on edge rows (no pulse, a pulse at sample 0, past
+512 events, pulses at tile edges) with and without the fused gain
+product; each bit-equal to its plain version over two chained calls, and
+printed beside its chain bound (timed alone by each source's probes:
+K3's steps times one dependent step; K4's staging bytes plus its syncs
+times a packet of the least length; K5's 64-sample head plus a map
+lookup a chunk; K6's samples times a fadd plus its pulses times a pulse
+step).
 
 B3's row counts the launches of both its entry points and times the
 block entry point, which the cascade chain's ``FIRDecimator`` launches;
@@ -2200,6 +2207,89 @@ def acars_rows(rng, rows, n, gap=(40, 400)):
     return out, sent
 
 
+def acars_noise_rows(rng, rows, n):
+    """[rows, n] float32 metrics of noise: at threshold 8 false syncs start
+    packets that run to the 252-byte cap."""
+    return rng.standard_normal((rows, n)).astype(np.float32)
+
+
+def preamble_tail(pay):
+    """``pay`` (247 bytes) and five bytes more: byte 247 and four whose air
+    bits (each byte's 7 bits LSB first and its odd-parity bit, sent
+    differentially) come nearest the preamble's 32, each bit solved in
+    turn, a parity bit off by at most one air bit."""
+    pre = [(0x3FFE5C5C >> (31 - i)) & 1 for i in range(32)]
+    best = None
+    for b247 in range(0x20, 0x7F):
+        tx = []
+        for byte in pay + [b247]:
+            bits = [(byte >> i) & 1 for i in range(7)]
+            tx += bits + [1 - sum(bits) % 2]
+        prev, tail = tx[-1], []
+        for k in range(4):
+            data = []
+            for i in range(7):
+                prev ^= pre[8 * k + i]
+                data.append(prev)
+            prev = 1 - sum(data) % 2          # the parity bit, forced
+            tail.append(sum(b << i for i, b in enumerate(data)))
+        air = acars_air(pay + [b247] + tail)[-32:]
+        wrong = int(np.sum(air != np.array(pre)))
+        if best is None or wrong < best[0]:
+            best = (wrong, pay + [b247] + tail)
+    assert best[0] <= 4
+    return best[1]
+
+
+def acars_edge_rows(rng, n, calls=2):
+    """[10, calls * n] float32 metrics at the ACARS walk's edges, for calls
+    of n bits. Rows 0-7: at every call boundary a packet still open, the
+    boundary falling o = 0..7 bits into its byte; row 8: a preamble across
+    every boundary but the first, its sync 5-23 bits into the call (found
+    only with the carried register); row 9: a packet with DEL at
+    ``etx + 2`` and not at ``etx + 3``, which runs to 252 bytes, its last
+    four bytes chosen so that its last 32 air bits are within 4 bits of
+    the preamble (at threshold 4 its last bit is a candidate, which the
+    search must not take). Packets after gaps of 10-60 bits fill the rest
+    of every row."""
+    total = calls * n
+    out = np.empty((10, total), np.float32)
+    for r in range(10):
+        fixed = []
+        for c in range(calls):
+            b = c * n
+            if r < 8 and c:
+                # the sync bit s: b - (s + 1) = 8 * 6 + r
+                fixed.append(b - 1 - 48 - r - 31)
+            elif r == 8 and c:
+                fixed.append(b + 5 + 9 * (c % 3) - 31)
+            elif r == 9:
+                fixed.append(b + 100)
+        air, at = [], 0
+        for start in fixed + [total]:
+            while True:      # packets up to the next fixed one
+                gap = int(rng.integers(10, 60))
+                pay = acars_payload(rng, b"EDGE %d" % len(air))
+                bits = acars_air(pay)
+                if at + gap + len(bits) + 10 > start:
+                    break
+                air += [np.zeros(gap, np.int64), bits]
+                at += gap + len(bits)
+            if start >= total:
+                break
+            air.append(np.zeros(start - at, np.int64))
+            pay = acars_payload(rng, b"EDGE %d" % len(air))
+            if r == 9:
+                pay[-2], pay[-1] = DEL, 0x41
+                pay = preamble_tail(pay + [0x41] * (247 - len(pay)))
+            air.append(acars_air(pay))
+            at = start + len(air[-1])
+        bits = np.concatenate(air + [np.zeros(max(0, total - at), np.int64)])
+        out[r] = (np.where(bits[:total] == 1, -1.0, 1.0)
+                  * rng.uniform(0.5, 1.5, total))
+    return out
+
+
 def manchester_rows(rng, rows, n):
     """[rows, n] uint8 Manchester chips (a 1 as 0 then 1) of random bits,
     each row with one chip dropped at a random place (the decoder must
@@ -2308,23 +2398,85 @@ def serial_case(name, shape, rows, n, xs, st0, call, plain, nbytes, probe,
                 nbytes=nbytes, flops=0, after=probe and chain_bound)
 
 
-def acars_case(dev, seed, rows, shape):
+def acars_syncs(m, thr):
+    """Syncs the ACARS walk takes in each row of one call ``m`` [rows, n]
+    (a lower bound of the packets it walks: the register starts empty and
+    a carried packet is not counted). A numpy walk: the candidates, then
+    from each sync the packet's bytes by the running parity."""
+    out = []
+    for row in m:
+        bits = (~(row > 0)).astype(np.int64)
+        win = np.lib.stride_tricks.sliding_window_view(
+            np.concatenate([np.zeros(31, np.int64), bits]), 32)
+        shifts = (win << np.arange(31, -1, -1)).sum(1)
+        wrong = sum(np.unpackbits(((shifts ^ 0x3FFE5C5C) >> s & 0xFF)
+                                  .astype(np.uint8)[:, None], axis=1).sum(1)
+                    for s in (0, 8, 16, 24))
+        cand = np.flatnonzero(wrong <= thr)
+        px = np.cumsum(bits) & 1
+        pos, count = 0, 0
+        while True:
+            j = np.searchsorted(cand, pos)
+            if j == len(cand):
+                break
+            s = int(cand[j])
+            count += 1
+            dec = px[s + 1:s + 1 + 8 * 252] ^ px[s]
+            nb = len(dec) // 8
+            val = (dec[:8 * nb].reshape(nb, 8)[:, :7] << np.arange(7)).sum(1)
+            etx = np.flatnonzero((np.arange(nb) > 13) & (val == 3))
+            end = 251
+            if len(etx) and etx[0] + 3 < nb and val[etx[0] + 3] == 0x7F:
+                end = int(etx[0]) + 3
+            if end >= nb:
+                break          # open at the call's end
+            pos = s + 8 * (end + 1) + 1
+        out.append(count)
+    return out
+
+
+def acars_case(dev, seed, rows, shape, metrics=None, thr=2):
+    """K4 on ``metrics`` [rows, 2 * DEC_BLOCK] (by default ``acars_rows``,
+    gaps of 10-60 bits) at threshold ``thr`` as two chained calls. Its
+    chain bound, printed beside it: the row's bytes at the card's rate
+    (staging) plus the busiest row's syncs (the mean of the two calls)
+    times one packet of the walk alone (``af.packet_ns``)."""
     rng = np.random.default_rng(seed)
-    m, _ = acars_rows(rng, rows, 2 * DEC_BLOCK, gap=(10, 60))
+    m = (acars_rows(rng, rows, 2 * DEC_BLOCK, gap=(10, 60))[0]
+         if metrics is None else metrics)
     xs = [torch.from_numpy(np.ascontiguousarray(
         m[:, c * DEC_BLOCK:(c + 1) * DEC_BLOCK])).to(dev) for c in range(2)]
     n_fields = len(decode.ACARS_FIELDS)
-    return serial_case(
+    case = serial_case(
         "acars_fsm", shape, rows, DEC_BLOCK, xs,
         rows_state(decode.ACARSDecoder(device=dev), rows, dev),
-        lambda fn, x, st: fn(x, st, 2), decode.acars_plain,
+        lambda fn, x, st: fn(x, st, thr), decode.acars_plain,
         rows * (4 * DEC_BLOCK + 4 * 4 * 254 + 4 + 2 * 4 * (n_fields + 252)),
-        af.chain_step_ns, lambda res: res[0])
+        None, lambda res: res[0])
+    most = float(np.mean([max(acars_syncs(m[:, c * DEC_BLOCK:
+                                            (c + 1) * DEC_BLOCK], thr))
+                          for c in range(2)]))
+
+    def chain_bound():
+        pk = af.packet_ns()
+        stage = 4 * DEC_BLOCK * rows / PEAK_BYTES * 1e3
+        return (f"the walk's chain: staging {stage:.5f} ms + {most:.1f} "
+                f"syncs x {pk:.1f} ns a packet = "
+                f"{stage + most * pk / 1e6:.4f} ms")
+    case["after"] = chain_bound
+    return case
 
 
-def manchester_case(dev, seed, rows, shape):
+def manchester_case(dev, seed, rows, shape, chips=None, original=False,
+                    window=16, thr=8):
+    """K5 on ``chips`` [rows, 2 * DEC_BLOCK] (by default
+    ``manchester_rows``) as two chained calls, the second's counts partial
+    on every third row. Its chain bound, printed beside it: the head's 64
+    steps (``mf.chain_step_ns``) and one map lookup a chunk
+    (``mf.compose_step_ns``)."""
     rng = np.random.default_rng(seed)
-    chips, _ = manchester_rows(rng, rows, 2 * DEC_BLOCK)
+    if chips is None:
+        chips, _ = manchester_rows(rng, rows, 2 * DEC_BLOCK)
     xs = [torch.from_numpy(np.ascontiguousarray(
         chips[:, c * DEC_BLOCK:(c + 1) * DEC_BLOCK])).to(dev)
         for c in range(2)]
@@ -2334,13 +2486,32 @@ def manchester_case(dev, seed, rows, shape):
 
     def call(fn, x, st):
         return fn(x, counts if x is xs[1] else counts.clamp(min=DEC_BLOCK),
-                  st, False, 16, 8)
-    return serial_case(
+                  st, original, window, thr)
+    case = serial_case(
         "manchester_fsm", shape, rows, DEC_BLOCK, xs,
         rows_state(decode.ManchesterDecode(device=dev), rows, dev), call,
         decode.manchester_plain,
-        rows * (DEC_BLOCK + DEC_BLOCK // 2 + 1 + 4 + 4 + 2 * 16),
-        mf.chain_step_ns, lambda res: res[0].to(torch.float32))
+        rows * (DEC_BLOCK + DEC_BLOCK // 2 + 1 + 4 + 4 + 2 * 16), None,
+        lambda res: res[0].to(torch.float32))
+    chunks = -(-(DEC_BLOCK - mf.HEAD) // mf.CHUNK)
+
+    def chain_bound():
+        step, look = mf.chain_step_ns(), mf.compose_step_ns()
+        ms = (mf.HEAD * step + chunks * look) / 1e6
+        return (f"the walk's chain: {mf.HEAD} head steps x {step:.3f} ns + "
+                f"{chunks} chunks x {look:.3f} ns (a map lookup) = "
+                f"{ms:.4f} ms")
+    case["after"] = chain_bound
+    return case
+
+
+def manchester_noise(rng, rows, n):
+    """[rows, n] uint8 random chips (slips everywhere), the last row
+    alternating 0, 1 (at threshold 0 it emits at every sample, past the
+    n / 2 + 1 slots)."""
+    chips = rng.integers(0, 2, (rows, n)).astype(np.uint8)
+    chips[-1] = np.arange(n) % 2
+    return chips
 
 
 def dpll_case(dev, shape, pulses, period0, gain=0.05, rel=0.05, ign=0.5):
@@ -2456,14 +2627,27 @@ def viterbi_case(dev, seed, overlap, shape):
 
 def decode_kernel_cases(dev):
     """K3 at an AutoFEC block and a ViterbiDecoder block; K4 and K5 at the
-    decoders path's [1, 2^14] and the JAX benchmark's bank [64, 2^14]; K6
-    as ``dpll_cases``."""
+    decoders path's [1, 2^14] and the JAX benchmark's bank [64, 2^14]; K4
+    on noise at threshold 8 and on ``acars_edge_rows`` at threshold 4; K5
+    on random chips at windows 1 and 31, thresholds 0 and window + 1,
+    both ``original``; K6 as ``dpll_cases``."""
+    rng = np.random.default_rng(42)
     return [viterbi_case(dev, 31, 0, "AutoFEC block"),
             viterbi_case(dev, 32, FEC_OVERLAP, "ViterbiDecoder block"),
             acars_case(dev, 33, 1, "decoders path"),
             acars_case(dev, 34, DEC_BANK, "decoder bank"),
+            acars_case(dev, 40, 1, "noise, threshold 8",
+                       acars_noise_rows(rng, 1, 2 * DEC_BLOCK), thr=8),
+            acars_case(dev, 41, 10, "edge rows, threshold 4",
+                       acars_edge_rows(rng, DEC_BLOCK), thr=4),
             manchester_case(dev, 35, 1, "decoders path"),
             manchester_case(dev, 36, DEC_BANK, "decoder bank"),
+            *[manchester_case(dev, 43, 4, f"random chips, window {w}, "
+                              f"threshold {thr}, original {orig}",
+                              manchester_noise(rng, 4, 2 * DEC_BLOCK), orig,
+                              w, thr)
+              for w, thr, orig in ((1, 0, False), (1, 2, True), (31, 0, True),
+                                   (31, 32, False))],
             *dpll_cases(dev)]
 
 
@@ -2812,8 +2996,8 @@ def decoders_path(dev):
                   f"{key} block {b}: state, card and CPU differ")
     print("decoders path blocks 0-1, card vs CPU: outputs, counts and "
           "states bit-equal (ACARS, Manchester, both DPLLs)")
-    for key, kern in (("acars", "acars_kernel"),
-                      ("manchester", "manchester_kernel"),
+    for key, kern in (("acars", "acars_sync_walk"),
+                      ("manchester", "manchester_class_walk"),
                       ("dpll", "dpll_kernel")):
         time_path(key, graphs[key], feeds[key], DEC_RATE[key], DEC_BLOCK,
                   "Msamp/s", kernels=(kern,))

@@ -6,9 +6,9 @@ Replaces the per-sample ``lax.scan`` of ``ManchesterDecode.apply``
 of ``bits`` [B, n] as an independent stream from the [B] state fields of
 :data:`.decode.MAN_FIELDS`, emitting only before each row's ``count``, and
 returns (bits [B, n // 2 + 1] uint8, emitted [B] int32, the new state). On
-the card it launches the kernel, one thread a row walking serially and
-writing each emission at its own running count; on the CPU it runs
-:func:`.decode.manchester_plain`.
+the card it launches the kernel (one launch a call), a block a row walking
+chunks of the row over the decoder's state classes and composing them;
+on the CPU it runs :func:`.decode.manchester_plain`.
 """
 
 from __future__ import annotations
@@ -17,47 +17,58 @@ import ctypes
 
 import torch
 
-from grbaz_tpu_torch.core.device import U32_MASK
 from grbaz_tpu_torch.ops.cuda import build
 from grbaz_tpu_torch.ops.decode import MAN_FIELDS, manchester_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the state's fields as the block keeps them, each passed by its pointer
+DTYPES = dict(phase=torch.int32, prev=torch.int32, viol_hist=torch.int64,
+              hist_len=torch.int32)
 
-_SIGNATURES = {"manchester_fsm": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                                  _P],
-               "manchester_chain_probe": [_I, _P, _P]}
+
+class _Fields(ctypes.Structure):
+    _fields_ = [(k, _P) for k in MAN_FIELDS]
+
+_SIGNATURES = {"manchester_fsm": [_P, _P, _I, _I, _I, _Fields, _P, _P,
+                                  _Fields, _I, _I, _I, _I, _P],
+               "manchester_chain_probe": [_I, _P, _P],
+               "manchester_compose_probe": [_I, _P, _P]}
+# chunks of 256 samples a segment (the source's kMaxSegChunks): a segment
+# is staged, walked and composed at once
+SEG_CHUNKS = 64
+CHUNK = 256
+HEAD = 64
 
 
 def _lib():
     return build.library("manchester_fsm", _SIGNATURES)
 
 
-def _launch(lib, bits, count, state, original, window, threshold, stream):
+def _launch(lib, bits, count, state, original, window, threshold, stream,
+            seg_chunks=SEG_CHUNKS):
     """Prepare the arguments, call ``lib.manchester_fsm`` and unpack its
     outputs (tensors on ``bits``'s device; ``lib`` the card's library or
-    a CPU rehearsal's)."""
+    a CPU rehearsal's, which passes fewer ``seg_chunks`` to cross
+    segments at small n)."""
     rows, n = bits.shape
     dev = bits.device
     x = bits if bits.dtype == torch.uint8 else (bits != 0).to(torch.uint8)
     x = x.contiguous()
-    cnt = count.to(torch.int32).reshape(-1).expand(rows).contiguous()
-    # uint32 fields go in as their bits: int64 values above 2^31 wrap
-    sin = torch.stack([state[k].reshape(rows).to(torch.int64).to(torch.int32)
-                       for k in MAN_FIELDS]).contiguous()
+    cnt = count.to(torch.int32).reshape(-1).contiguous()
+    # each field in place (a cast only if it is not the block's type)
+    fin = {k: state[k].reshape(rows).to(DTYPES[k]).contiguous()
+           for k in MAN_FIELDS}
+    new = {k: torch.empty(rows, dtype=DTYPES[k], device=dev)
+           for k in MAN_FIELDS}
     out = torch.empty(rows, n // 2 + 1, dtype=torch.uint8, device=dev)
     n_out = torch.empty(rows, dtype=torch.int32, device=dev)
-    sout = torch.empty_like(sin)
     err = lib.manchester_fsm(
-        x.data_ptr(), cnt.data_ptr(), n, rows, sin.data_ptr(),
-        out.data_ptr(), n_out.data_ptr(), sout.data_ptr(), int(original),
-        int(window), int(threshold),
-        stream)
+        x.data_ptr(), cnt.data_ptr(), int(cnt.numel() > 1), n, rows,
+        _Fields(*(fin[k].data_ptr() for k in MAN_FIELDS)), out.data_ptr(),
+        n_out.data_ptr(), _Fields(*(new[k].data_ptr() for k in MAN_FIELDS)),
+        int(original), int(window), int(threshold), int(seg_chunks), stream)
     build.check(err, "manchester_fsm")
-    new = {}
-    for name, v in zip(MAN_FIELDS, sout):
-        new[name] = (v.to(torch.int64) & U32_MASK) if name == "viol_hist" \
-            else v
     return out, n_out, new
 
 
@@ -77,6 +88,9 @@ def manchester_fsm_kernel(bits: torch.Tensor, count: torch.Tensor,
         raise ValueError(f"rows of shape {tuple(bits.shape)} are not walkable")
     if not 1 <= window <= 31:
         raise ValueError(f"window {window} not in [1, 31]")
+    if count.numel() not in (1, rows):
+        raise ValueError(f"count must hold 1 or {rows} values, not "
+                         f"{count.numel()}")
     for k, v in list(state.items()) + [("count", count)]:
         if v.device != bits.device:
             raise ValueError(f"{k} must lie on {bits.device}, not {v.device}")
@@ -101,6 +115,13 @@ manchester_fsm.launches = 0
 
 def chain_step_ns(steps: int = 1 << 20) -> float:
     """(Benchmark hook.) ns of a step of the pair FSM alone (the source's
-    ``manchester_chain_probe``, its inputs from shared memory) on one
-    thread of the current card."""
+    ``manchester_chain_probe``, its inputs from shared memory; the head's
+    step) on one thread of the current card."""
     return build.chain_step_ns(_lib(), "manchester_chain_probe", steps)
+
+
+def compose_step_ns(steps: int = 1 << 20) -> float:
+    """(Benchmark hook.) ns of one dependent map lookup in shared memory
+    (the source's ``manchester_compose_probe``; the composition's step, one
+    a chunk) on one thread of the current card."""
+    return build.chain_step_ns(_lib(), "manchester_compose_probe", steps)

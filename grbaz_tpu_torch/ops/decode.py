@@ -2,12 +2,13 @@
 ``grbaz_tpu/ops/decode.py``).
 
 The JAX package walks each decoder as a per-sample ``lax.scan``. Here each
-walk is a serial FSM over rows ``[B, n]`` (one stream a row, [B] state
-fields): on the card a CUDA kernel with one thread a row
-(``csrc/manchester_fsm.cu``, ``csrc/dpll_walk.cu``, ``csrc/acars_fsm.cu``,
-through the wrappers in ``ops/cuda/``), on the CPU the plain versions
-below, host loops of numpy scalars that mirror the JAX scans step for
-step. The blocks call them with one row.
+walk is an FSM over rows ``[B, n]`` (one stream a row, [B] state fields):
+on the card a CUDA kernel a block or a warp a row (``csrc/manchester_fsm.cu``
+over chunks of the decoder's state classes, ``csrc/dpll_walk.cu`` from
+pulse to pulse, ``csrc/acars_fsm.cu`` from sync to sync, through the
+wrappers in ``ops/cuda/``), on the CPU the plain versions below, host
+loops of numpy scalars that mirror the JAX scans step for step. The
+blocks call them with one row.
 
 Behaviours of the JAX package kept as they are:
 

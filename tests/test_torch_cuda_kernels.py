@@ -1148,10 +1148,17 @@ def _serial_cases():
         ("dpll gain 0.3", dpll_walk.dpll_walk, decode.dpll_plain, pulses,
          lambda fn, x, st, c: fn(x, st, 0.3, 0.4, 0.3),
          state(lambda d: decode.DPLLBitSync(40.0, device=d))),
+        ("acars noise", acars_fsm.acars_fsm, decode.acars_plain,
+         chip_smoke.acars_noise_rows, lambda fn, x, st, c: fn(x, st, 8),
+         state(lambda d: decode.ACARSDecoder(device=d))),
+        ("manchester random chips", manchester_fsm.manchester_fsm,
+         decode.manchester_plain, chip_smoke.manchester_noise,
+         lambda fn, x, st, c: fn(x, c, st, False, 1, 0),
+         state(lambda d: decode.ManchesterDecode(device=d))),
     ]
 
 
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(7))
 @pytest.mark.parametrize("rows,n", [(1, 5000), (33, 3001), (64, 1 << 14)])
 def test_serial_decoder_kernels_match_plain(dev, case, rows, n):
     name, wrapper, plain, make, call, state = _serial_cases()[case]

@@ -1,6 +1,6 @@
 // CPU emulation of the CUDA pieces csrc/channel_bank.cu, fastrak_fsm.cu,
 // vrr_walk.cu and the decoders' kernels (viterbi.cu, acars_fsm.cu,
-// manchester_fsm.cu, dpll_walk.cu) use, for tools/cpu_shim/bank_check.py,
+// manchester_fsm.cu, dpll_walk.cu, block_scan.cuh) use, for tools/cpu_shim/bank_check.py,
 // fsm_check.py and decode_check.py: one
 // std::thread a CUDA thread, blocks in turn, shared memory filled with NaN
 // before each block.
@@ -90,6 +90,12 @@ inline long long atomicMin(long long* a, long long v) {
   if (v < old) *a = v;
   return old;
 }
+inline int atomicAdd(int* a, int v) {
+  std::lock_guard<std::mutex> g(shim_atomic_mutex);
+  int old = *a;
+  *a = old + v;
+  return old;
+}
 template <class T>
 inline T __shfl_sync(unsigned, T v, int src) { return shim_from_lane(v, src); }
 template <class T>
@@ -126,6 +132,9 @@ inline T shim_warp_reduce(T v, F f) {
 inline int __reduce_max_sync(unsigned, int v) {
   return shim_warp_reduce(v, [](int a, int b) { return a > b ? a : b; });
 }
+inline int __reduce_add_sync(unsigned, int v) {
+  return shim_warp_reduce(v, [](int a, int b) { return a + b; });
+}
 inline int __reduce_min_sync(unsigned, int v) {
   return shim_warp_reduce(v, [](int a, int b) { return a < b ? a : b; });
 }
@@ -143,6 +152,7 @@ inline unsigned __vcmpne4(unsigned a, unsigned b) {
   return r;
 }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __popcll(unsigned long long v) { return __builtin_popcountll(v); }
 inline unsigned __brev(unsigned v) {
   unsigned r = 0;
   for (int i = 0; i < 32; ++i) r |= ((v >> i) & 1u) << (31 - i);

@@ -133,27 +133,12 @@ def fsm_cases(csrc, out, ks=tuple(VITERBI_CODES), parts=("viterbi", "acars",
             a[:, c * n:(c + 1) * n])) for c in range(calls)]
 
     if "acars" in parts:
-        lib = load(csrc, out, "acars_fsm", af)
-        m, _ = chip_smoke.acars_rows(rng, rows, 3 * n, gap=(5, 40))
-        st = chip_smoke.rows_state(decode.ACARSDecoder(device="cpu"), rows,
-                                   "cpu")
-        ok &= chained("acars, more than 4 packets a call",
-                      lambda x, s: af._launch(lib, x, s, 2, None),
-                      lambda x, s: decode.acars_plain(x, s, 2), split(m), st)
+        ok &= acars_cases(load(csrc, out, "acars_fsm", af), rng, rows, n,
+                          split)
 
     if "manchester" in parts:
         lib = load(csrc, out, "manchester_fsm", mf)
-        chips, _ = chip_smoke.manchester_rows(rng, rows, 3 * n)
-        st = chip_smoke.rows_state(decode.ManchesterDecode(device="cpu"),
-                                   rows, "cpu")
-        counts = torch.tensor([n, n - 7, n - 1000, 1, n], dtype=torch.int32)
-        for original in (False, True):
-            ok &= chained(
-                f"manchester, partial counts, original {original}",
-                lambda x, s: mf._launch(lib, x, counts, s, original, 12, 5,
-                                        None),
-                lambda x, s: decode.manchester_plain(x, counts, s, original,
-                                                     12, 5), split(chips), st)
+        ok &= manchester_cases(lib, rng, rows, n, split)
 
     if "dpll" in parts:
         lib = load(csrc, out, "dpll_walk", dw)
@@ -179,6 +164,104 @@ def fsm_cases(csrc, out, ks=tuple(VITERBI_CODES), parts=("viterbi", "acars",
     return ok
 
 
+def acars_cases(lib, rng, rows, n, split):
+    """K4 over chained calls: chip_smoke's rows (more than 4 packets a
+    call), noise at threshold 8, the edge rows (packets open across the
+    calls at every bit of a byte, syncs in a call's first 31 bits, DEL at
+    etx + 2 and a candidate on a packet's last bit, at threshold 4), calls of 5 and 1001 bits, carried packets no walk leaves,
+    and segments of 512 and 32 bits (the card's are 2^14)."""
+    ok = True
+    st = chip_smoke.rows_state(decode.ACARSDecoder(device="cpu"), rows, "cpu")
+
+    def case(label, xs, state, thr=2, seg=af.SEG):
+        return chained(
+            f"acars, {label}, threshold {thr}, segments of {seg} bits",
+            lambda x, s: af._launch(lib, x, s, thr, None, seg),
+            lambda x, s: decode.acars_plain(x, s, thr), xs, state)
+    m, _ = chip_smoke.acars_rows(rng, rows, 3 * n, gap=(5, 40))
+    ok &= case("more than 4 packets a call", split(m), st)
+    ok &= case("more than 4 packets a call", split(m), st, seg=512)
+    noise = chip_smoke.acars_noise_rows(rng, rows, 3 * n)
+    ok &= case("noise", split(noise), st, thr=8)
+    ok &= case("noise", split(noise), st, thr=8, seg=32)
+    edge = chip_smoke.acars_edge_rows(rng, 2600, calls=3)
+    est = chip_smoke.rows_state(decode.ACARSDecoder(device="cpu"), len(edge),
+                                "cpu")
+    ok &= case("edge rows", [torch.from_numpy(np.ascontiguousarray(
+        edge[:, c * 2600:(c + 1) * 2600])) for c in range(3)], est, thr=4)
+    for m_len in (5, 1001):
+        m, _ = chip_smoke.acars_rows(rng, rows, 3 * m_len, gap=(1, 3))
+        ok &= case(f"{m_len}-bit calls", [torch.from_numpy(
+            np.ascontiguousarray(m[:, c * m_len:(c + 1) * m_len]))
+            for c in range(3)], st)
+    bad = {k: v.clone() for k, v in st.items()}
+    bad["searching"] = torch.tensor([False, False, False, True, False])
+    bad["bit_count"] = torch.tensor([0, 3, -2, 5, 4], dtype=torch.int32)
+    bad["byte_count"] = torch.tensor([-3, 300, 4, 77, 250],
+                                     dtype=torch.int32)
+    bad["cur_byte"] = torch.tensor([0, 5, 1, 3, 9], dtype=torch.int32)
+    bad["parity_errors"] = torch.tensor([1, 2, 3, 4, 5], dtype=torch.int32)
+    bad["etx_index"] = torch.tensor([-1, 20, -1, 9, 247], dtype=torch.int32)
+    bad["pkt"] = torch.from_numpy(rng.integers(0, 128, (rows, 252))
+                                  .astype(np.float32))
+    m, _ = chip_smoke.acars_rows(rng, rows, 3 * n, gap=(5, 40))
+    ok &= case("carried packets no walk leaves", split(m), bad)
+    return ok
+
+
+def manchester_cases(lib, rng, rows, n, split):
+    """K5 over chained calls: chip_smoke's rows with partial counts (both
+    ``original``), random chips at windows 1, 5, 16 and 31 with thresholds
+    0 to window + 1, carried states no walk leaves, short and odd calls,
+    and segments of two chunks (the card's 64 need rows past 2^14)."""
+    ok = True
+    chips, _ = chip_smoke.manchester_rows(rng, rows, 3 * n)
+    noise = rng.integers(0, 2, (rows, 3 * n)).astype(np.uint8)
+    st = chip_smoke.rows_state(decode.ManchesterDecode(device="cpu"), rows,
+                               "cpu")
+    counts = torch.tensor([n, n - 7, n - 1000, 1, n], dtype=torch.int32)
+
+    def case(label, xs, state, original, w, thr, seg=mf.SEG_CHUNKS,
+             cnt=counts):
+        return chained(
+            f"manchester, {label}, original {original}, window {w}, "
+            f"threshold {thr}, segments of {seg} chunks",
+            lambda x, s: mf._launch(lib, x, cnt, s, original, w, thr, None,
+                                    seg),
+            lambda x, s: decode.manchester_plain(x, cnt, s, original, w, thr),
+            xs, state)
+    for original in (False, True):
+        ok &= case("partial counts", split(chips), st, original, 12, 5)
+    for w, thr, original in ((16, 8, False), (1, 0, False), (1, 2, True),
+                             (5, 3, True), (31, 0, True), (31, 12, False),
+                             (31, 32, False)):
+        ok &= case("random chips", split(noise), st, original, w, thr)
+    ok &= case("segments", split(chips), st, False, 16, 8, seg=2)
+    ok &= case("random chips, segments", split(noise), st, False, 4, 2,
+               seg=1)
+    odd = rng.integers(0, 2, (rows, 3 * 41)).astype(np.uint8)
+    short = [torch.from_numpy(np.ascontiguousarray(odd[:, c * 41:(c + 1) * 41]))
+             for c in range(3)]
+    ok &= case("41-sample calls", short, st, False, 5, 3,
+               cnt=torch.tensor([41, 40, 3, 0, 41], dtype=torch.int32))
+    bad = {k: v.clone() for k, v in st.items()}
+    bad["phase"] = torch.tensor([1, 3, 0, 1, 1], dtype=torch.int32)
+    bad["prev"] = torch.tensor([5, 1, 0, 1, 0], dtype=torch.int32)
+    bad["viol_hist"] = torch.tensor([0xFFFF, 0xF0F0F0F0, 3, 1, 0])
+    # hist_len -100: no class after the head (walked step by step); -25:
+    # in range after the head but short of its real violations
+    bad["hist_len"] = torch.tensor([2, 40, -100, -25, -2], dtype=torch.int32)
+    ok &= case("carried states no walk leaves", split(noise), bad, False, 16,
+               8, seg=2)
+    # 75 samples: hist_len -25 is in range after the head, its hist not
+    # the class's rebuild at the call's end
+    short = [torch.from_numpy(np.ascontiguousarray(noise[:, c * 75:(c + 1) * 75]))
+             for c in range(3)]
+    ok &= case("75-sample calls from carried states no walk leaves", short,
+               bad, False, 16, 8, cnt=torch.tensor([75], dtype=torch.int32))
+    return ok
+
+
 # (source, text, replacement, the cases that must catch it)
 MUTANTS = {
     "viterbi ties (>=)": ("viterbi.cu", "c[q] = c1 > c0;",
@@ -200,15 +283,44 @@ MUTANTS = {
     "dpll estimate from the pulse before": (
         "dpll_walk.cu", "before ? pper[before - 1] : start;",
         "before > 1 ? pper[before - 2] : start;", dict(parts=("dpll",))),
+    "acars search resumed on the finish bit": (
+        "acars_fsm.cu", "++k;\n          pos = last.last_bit + 1;",
+        "++k;\n          pos = last.last_bit;", dict(parts=("acars",))),
+    "acars DEL tested at etx + 2": (
+        "acars_fsm.cu", "const int del_at = etx + 3;",
+        "const int del_at = etx + 2;", dict(parts=("acars",))),
+    "acars candidates in bits 0-30 without the carried register": (
+        "acars_fsm.cu", "lo + 32 * wi < 0 ? __brev(shift0) : v;",
+        "lo + 32 * wi < 0 ? 0u : v;", dict(parts=("acars",))),
+    "acars prev_bit not reset at a sync": (
+        "acars_fsm.cu",
+        "q = (sm.par[(sync - lo) >> 5] >> ((sync - lo) & 31)) & 1;",
+        "(void)0;", dict(parts=("acars",))),
+    "manchester viol_hist rebuilt in the other alignment": (
+        "manchester_fsm.cu", "const int last = ph == 1 ? c - 2 : c - 1;",
+        "const int last = ph == 1 ? c - 1 : c - 2;",
+        dict(parts=("manchester",))),
+    "manchester classes from 32 samples on (before 2 window + 2)": (
+        "manchester_fsm.cu", "constexpr int kHead = 64;",
+        "constexpr int kHead = 32;", dict(parts=("manchester",))),
+    "manchester class taken without the head's check": (
+        "manchester_fsm.cu",
+        "sm.serial = !(cls && prev == st.prev && hist == st.hist);",
+        "sm.serial = !cls;", dict(parts=("manchester",))),
+    "manchester slip test with >": (
+        "manchester_fsm.cu", "__popcll(f & k.pat) >= k.threshold",
+        "__popcll(f & k.pat) > k.threshold", dict(parts=("manchester",))),
 }
 
 
-def mutants(csrc, out) -> bool:
-    """Each mutant of ``MUTANTS`` in its own copy of ``csrc``: every one
-    must fail its cases. Whether all did."""
+def mutants(csrc, out, parts) -> bool:
+    """Each mutant of ``MUTANTS`` of the named kernels in its own copy of
+    ``csrc``: every one must fail its cases. Whether all did."""
     import shutil
     ok = True
     for i, (label, (src, old, new, kw)) in enumerate(MUTANTS.items()):
+        if not set(kw["parts"]) & set(parts):
+            continue
         d = out / f"mutant{i}"
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(csrc, d / "csrc")
@@ -234,11 +346,16 @@ def main(argv) -> int:
     with_mutants = "--mutants" in args
     if with_mutants:
         args.remove("--mutants")
+    parts = ("viterbi", "acars", "manchester", "dpll")
+    if "--parts" in args:
+        i = args.index("--parts")
+        parts = tuple(args[i + 1].split(","))
+        del args[i:i + 2]
     out = pathlib.Path(args[0]) if args else ROOT / "_archive" / "cpu_shim"
     torch.set_num_threads(min(4, os.cpu_count() or 1))
-    ok = fsm_cases(csrc, out)
+    ok = fsm_cases(csrc, out, parts=parts)
     if with_mutants:
-        ok &= mutants(csrc, out)
+        ok &= mutants(csrc, out, parts)
     print("ALL OK" if ok else "FAIL")
     return 0 if ok else 1
 

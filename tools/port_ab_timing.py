@@ -17,9 +17,12 @@ step time (:func:`bank_timing`). With ``--bank``, each process builds
 only the channel bank's kernel, runs ``chip_smoke.bank_case``'s check
 (printing each error and ``held True`` or ``held False``) and times the
 kernel per launch (:func:`bank_one`; ``tools/bank_variants.py`` runs its
-mutants so). With ``--decoders``, each process builds only the Viterbi
-and DPLL kernels, holds and times their cases per launch and times the
-ViterbiDecoder and DPLL graphs' steps (:func:`decoders`). Every output
+mutants so). With ``--decoders``, each process builds only the decoders'
+kernels (Viterbi, ACARS, Manchester, DPLL), holds and times their cases
+per launch (ACARS and Manchester at the decoders path's [1, 2^14] and the
+bank's [64, 2^14] only, the cases every checkout has) and times the
+ViterbiDecoder, ACARS, Manchester and DPLL graphs' steps
+(:func:`decoders`). Every output
 line is prefixed with the checkout it came from; timings compare only
 within one call. Exits non-zero if any checkout's process fails.
 """
@@ -122,11 +125,12 @@ def bank_one() -> None:
 
 
 def decoders() -> None:
-    """K3 and K6 of the checkout in the working directory: each K3 and K6
-    case of its ``chip_smoke.decode_kernel_cases`` held to its plain
-    version, then timed a launch (CUDA events, 20 launches); the
-    ViterbiDecoder step (overlap 96) over 8 blocks of 2^16 soft pairs and
-    both DPLL graphs' steps over the decoders path's trains
+    """K3-K6 of the checkout in the working directory: each K3 and K6 case
+    of its ``chip_smoke.decode_kernel_cases`` and the K4 and K5 cases at
+    the decoders path's and the bank's shapes held to its plain version,
+    then timed a launch (CUDA events, 20 launches); the ViterbiDecoder
+    step (overlap 96) over 8 blocks of 2^16 soft pairs and the ACARS,
+    Manchester and both DPLL graphs' steps over the decoders path's scene
     (``graph_timer``, 6 rounds of 8 steps, every output in the
     checksum)."""
     import numpy as np
@@ -134,9 +138,11 @@ def decoders() -> None:
     import chip_smoke as c
 
     dev = torch.device("cuda")
-    c.build.build_all(["viterbi", "dpll_walk"])
+    c.build.build_all(["viterbi", "acars_fsm", "manchester_fsm",
+                       "dpll_walk"])
     cases = [k for k in c.decode_kernel_cases(dev)
-             if k["name"] in ("viterbi", "dpll_walk")]
+             if k["name"] in ("viterbi", "dpll_walk")
+             or k["shape"].split(",")[0] in ("decoders path", "decoder bank")]
     c.check_kernels(cases)
     for k in cases:
         us = c.time_ms(k["kernel"], 20) * 1e3
@@ -150,7 +156,7 @@ def decoders() -> None:
                                            72e3))
     feeds, _, _ = c.decoder_scene(dev)
     graphs = c.decoder_graphs(dev)
-    for key in ("dpll", "dpll16"):
+    for key in ("acars", "manchester", "dpll", "dpll16"):
         steps(key, c.graph_timer(graphs[key], feeds[key], c.DEC_RATE[key]))
 
 
