@@ -94,7 +94,26 @@ failure of which exits non-zero:
     periods 100.3 and 16.0; blocks 0-1 bit-equal to the CPU; timed and
     profiled;
 14. every block of ``ops/basic.py`` and ``ops/misc.py`` in a one-block
-    graph on the card against the CPU (``small_blocks_phase``).
+    graph on the card against the CPU (``small_blocks_phase``);
+15. the P25 receiver (``p25_path``): 8 blocks of 2^19 samples at 1.536
+    Msamp/s (an RTL dongle) holding wire LDUs from ``make_wire_ldu``
+    (clear, and DES-OFB under two KIDs) between random dibits,
+    C4FM-modulated at the wideband rate at +200 kHz with noise, through
+    the channel block (B1 at decim 32, 768 taps, one launch a block) in
+    front of ``build_p25_rx`` at its defaults; every LDU found at its
+    index (plus the chain's one-symbol delay) with its NAC and DUID,
+    ``P25WireVoiceDecoder`` recovering every codeword's bits with the
+    right keys and garbling the encrypted ones with the keys swapped;
+    blocks 0-1 against the CPU (the channel and the soft symbols within
+    1e-5 of their max, dibits and frame events equal); timed in Msamp/s
+    of wideband input and profiled;
+16. the Audio FMCW radar (``fmcw_path``): ``build_fmcw`` at the demo's
+    widths (48 kHz, 2-8 kHz sweeps of 1024) over 4 blocks of 2^20
+    samples of two echoes plus noise (no kernel): both echoes in their
+    beat bins, ``tx`` equal to ``chirp_iq``'s real part, block 0 against
+    the CPU (``beat`` and ``tx`` within 1e-6, the range magnitudes within
+    1e-5 of each sweep's full scale), a run across the deramp counter's
+    2^32 wrap whose counters equal the CPU's; timed and profiled.
 
 The FSM kernel's cases run at the burst path's [1, 2^20] (its row) and
 at the decoder-bank shape [64, 2^14], the latter also with a smoothed
@@ -129,9 +148,12 @@ times a packet of the least length; K5's 64-sample head plus a map
 lookup a chunk; K6's samples times a fadd plus its pulses times a pulse
 step).
 
-B3's row counts the launches of both its entry points and times the
-block entry point, which the cascade chain's ``FIRDecimator`` launches;
-the frame entry point is timed on the ``time`` lines only.
+B1's row counts the launches of the cascade chain and of the P25 path;
+its cases also run at the AM shape (decim 16) and the P25 shape (decim
+32, 768 taps, 2^14 outputs). B3's row counts the launches of both its
+entry points and times the block entry point, which the cascade chain's
+``FIRDecimator`` launches; the frame entry point is timed on the
+``time`` lines only.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -155,9 +177,16 @@ from grbaz_tpu_torch.core.executor import InputSpec, StreamExecutor
 from grbaz_tpu_torch.core.graph import Flowgraph
 from grbaz_tpu_torch.core.pump import StreamPump
 from grbaz_tpu_torch.core.stream import (Stream, StreamMeta, decode_abs_index,
-                                         stream_flags)
+                                         decode_i32, stream_flags)
 from grbaz_tpu_torch.models.auto_fec import (_ROTATIONS, AutoFEC, fec_eval,
                                              reencode)
+from grbaz_tpu_torch.models.fmcw import (FMCWConfig, build_fmcw, chirp_iq,
+                                         simulate_echo)
+from grbaz_tpu_torch.models.p25 import P25Config, build_p25_rx, c4fm_modulate
+from grbaz_tpu_torch.models.p25_voice import (ALGID_CLEAR, ALGID_DES_OFB,
+                                              WIRE_LDU_DIBITS,
+                                              P25WireVoiceDecoder,
+                                              make_wire_ldu)
 from grbaz_tpu_torch.models.spectral import (FACConfig, SpectralConfig,
                                              build_fac, build_spectrum)
 from grbaz_tpu_torch.models.wbfm import WBFMConfig, WBFMFrontend, build_wbfm
@@ -185,6 +214,7 @@ from grbaz_tpu_torch.ops.wbfm_frontend import rotated_taps
 from grbaz_tpu_torch.ops.demod import AMDemod
 from grbaz_tpu_torch.ops.fec import GLFSRSource, PNBERv, ViterbiDecoder
 from grbaz_tpu_torch.ops.fir import FIRDecimator, FreqXlatingFIRDecimator
+from grbaz_tpu_torch.ops.fsk4 import P25_SYMBOL_RATE
 from grbaz_tpu_torch.ops.misc import FastrakDecoder
 from grbaz_tpu_torch.ops.mmse import NTAPS as NTAPS_MMSE
 from grbaz_tpu_torch.ops.resampler import (FractionalResampler,
@@ -466,6 +496,14 @@ def kernel_cases(dev):
     inc_am = torch.tensor(int(exact.freq_to_turns_u32(-AM_STATION_HZ, AM_FS)),
                           device=dev)
     tail_am = cn(tpad_am)
+    # B1 at the P25 path's shape: 2^19 samples at 1.536 Msamp/s, decim 32
+    h_p25 = torch.from_numpy(fir.prepare_taps(p25_channel_taps(),
+                                              P25_DECIM)).to(dev)
+    tpad_p25, n_p25 = h_p25.shape[0], P25_BLOCK // P25_DECIM
+    inc_p25 = torch.tensor(int(exact.freq_to_turns_u32(-P25_OFFSET_HZ,
+                                                       P25_FS)), device=dev)
+    tail_p25 = cn(tpad_p25)
+    xs_p25 = copies(lambda: cn(P25_BLOCK), 8 * P25_BLOCK)
     # B3 at the FasTrak path's shape: float32 at decim 1 through the sync
     # stream's matched filter; each block is the end of a frame
     h_sync = torch.from_numpy(fir.prepare_taps(fastrak_sync_taps(),
@@ -504,6 +542,18 @@ def kernel_cases(dev):
                                                      AM_DECIM, 8),
              nbytes=8 * BLOCK + 12 * tpad_am + 8 * n_am + 16,
              flops=6 * BLOCK + 4 * tpad_am * n_am),
+        dict(name="xlating_fir_block",
+             shape=f"P25 channel, decim {P25_DECIM}, {tpad_p25} taps",
+             kernel=lambda i: xf.xlating_fir_block(
+                 xs_p25[i % len(xs_p25)], tail_p25, h_p25, P25_DECIM, phase0,
+                 inc_p25),
+             plain=lambda i: xf.xlating_fir_block_plain(
+                 xs_p25[i % len(xs_p25)], tail_p25, h_p25, P25_DECIM, phase0,
+                 inc_p25),
+             library=None, geometry=tiling.for_tensor(
+                 xs_p25[0], n_p25, tpad_p25, P25_DECIM, 8),
+             nbytes=8 * P25_BLOCK + 12 * tpad_p25 + 8 * n_p25 + 16,
+             flops=6 * P25_BLOCK + 4 * tpad_p25 * n_p25),
         # B3's row: the block entry point at audio_aa, what the cascade
         # chain's FIRDecimator launches; the frame entry point's cases
         # after it are timed for the record
@@ -3147,6 +3197,322 @@ def small_blocks_phase(dev):
           + ", ".join(f"{k} {e:.2e}" for k, e in worst.items() if e))
 
 
+# ---------------------------------------------------------------------------
+# P25 receive and voice behind the channel block
+# ---------------------------------------------------------------------------
+
+P25_FS = 1.536e6                # an RTL dongle's rate
+P25_DECIM = 32                  # to P25Config's 48 kHz channel rate
+P25_BLOCK = 1 << 19             # 2^14 channel samples, P25Config's block
+P25_OFFSET_HZ = 200e3
+P25_NOISE = 0.05                # complex noise a component, wideband
+P25_NAC = 0x293
+P25_KEYS = {0x12: "0123456789abcdef", 0x34: "13579bdf02468ace"}
+P25_PATH_KERNELS = ("xlating_fir_block",)
+# the scene's LDUs in turn, (DUID, ALGID, KID): the wire LDU carries its
+# encryption sync in LDU2 only, so the encrypted ones are LDU2s
+P25_LDUS = ((0x5, ALGID_CLEAR, 0), (0xA, ALGID_DES_OFB, 0x12),
+            (0xA, ALGID_CLEAR, 0), (0xA, ALGID_DES_OFB, 0x34))
+P25_SOFT_REL = 1e-5
+
+
+def p25_channel_taps():
+    """The P25 channel's low-pass: 741 taps, 7.25 kHz cut-off, 5 kHz
+    wide."""
+    return fir.low_pass_taps(1.0, P25_FS, 7.25e3, 5e3)
+
+
+def p25_scene(dev, n_blocks=N_BLOCKS, seed=25):
+    """``n_blocks`` blocks of P25_BLOCK samples at P25_FS (8 blocks: 2.7 s)
+    holding wire LDUs (P25_LDUS in turn, random voice bits, MIs and link
+    control) between runs of 100-400 random dibits, C4FM-modulated at
+    the wideband rate, moved to +P25_OFFSET_HZ, with complex noise.
+    Returns the feeds and the plan, [(dibit index, DUID, ALGID, KID,
+    voice [9, 88])]."""
+    rng = np.random.default_rng(seed)
+    n = n_blocks * P25_BLOCK
+    n_dib = int(np.ceil(n * P25_SYMBOL_RATE / P25_FS)) + 1
+    parts, plan, pos = [], [], 0
+    while True:
+        gap = rng.integers(0, 4, int(rng.integers(100, 400))).astype(np.uint8)
+        if pos + len(gap) + WIRE_LDU_DIBITS + 100 > n_dib:
+            break
+        duid, algid, kid = P25_LDUS[len(plan) % len(P25_LDUS)]
+        voice = rng.integers(0, 2, (9, 88)).astype(np.uint8)
+        ldu = make_wire_ldu(
+            P25_NAC, duid, voice, mi=int.from_bytes(rng.bytes(9), "big"),
+            algid=algid, kid=kid,
+            key=int(P25_KEYS[kid], 16) if algid == ALGID_DES_OFB else None,
+            lc72=rng.integers(0, 2, 72).astype(np.uint8))
+        parts += [gap, ldu]
+        pos += len(gap)
+        plan.append((pos, duid, algid, kid, voice))
+        pos += len(ldu)
+    parts.append(rng.integers(0, 4, n_dib - pos).astype(np.uint8))
+    iq = torch.from_numpy(c4fm_modulate(np.concatenate(parts), P25_FS)[:n])
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    lo = torch.polar(torch.ones_like(t), 2 * np.pi * torch.frac(
+        t * (P25_OFFSET_HZ / P25_FS))).to(torch.complex64)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    iq = iq.to(dev) * lo + P25_NOISE * torch.view_as_complex(
+        torch.randn(n, 2, generator=gen, device=dev))
+    return ([dict(iq=iq[b * P25_BLOCK:(b + 1) * P25_BLOCK])
+             for b in range(n_blocks)], plan)
+
+
+def p25_graph(device):
+    """The channel block (B1 at decim 32) in front of ``build_p25_rx`` at
+    its defaults; the channel is an output too."""
+    fg, h = build_p25_rx(P25Config(), device=device)
+    chan = FreqXlatingFIRDecimator(p25_channel_taps(), P25_DECIM,
+                                   P25_OFFSET_HZ, P25_FS, name="channel",
+                                   device=device)
+    fg.connect(chan, h["disc"])
+    fg.input("iq", chan)
+    fg.output("channel", chan)
+    return fg
+
+
+def p25_events(outs):
+    """[(symbol index, NAC, DUID, sync errors)] over every step."""
+    rows = []
+    for o in outs:
+        ev, n = o["frames"]
+        ev = ev[:int(n)].cpu().numpy()
+        rows += [(int(i), int(a), int(d), int(e)) for i, (a, d, e)
+                 in zip(decode_i32(ev[:, 0]), ev[:, 1:].astype(np.int64))]
+    return rows
+
+
+def p25_voice(outs, key_map):
+    """P25WireVoiceDecoder over every step's valid dibits and events."""
+    dec = P25WireVoiceDecoder(key_map=key_map)
+    frames = []
+    for o in outs:
+        dib, n = o["dibits"]
+        ev, n_ev = o["frames"]
+        frames += dec.feed(dib[:int(n)], ev, n_ev)
+    return frames
+
+
+def check_p25_outputs(outs, plan):
+    """Every planted LDU found once, at its dibit index plus the chain's
+    one delay, with its NAC and DUID; the voice bits of every LDU back
+    with the right keys; every encrypted codeword garbled with the keys
+    swapped. Returns (delay, sync errors, LDUs, encrypted LDUs)."""
+    found = p25_events(outs)
+    check(len(found) == len(plan), f"P25: {len(found)} frames found, "
+          f"{len(plan)} planted")
+    delays = {f[0] - p[0] for f, p in zip(found, plan)}
+    check(len(delays) == 1 and 0 <= min(delays) <= 8,
+          f"P25: frames not at their indices (delays {sorted(delays)})")
+    check(all((f[1], f[2]) == (P25_NAC, p[1]) for f, p in zip(found, plan)),
+          "P25: a frame's NAC or DUID")
+    frames = p25_voice(outs, P25_KEYS)
+    check(len(frames) == 9 * len(plan), f"P25: {len(frames)} voice frames")
+    for i, (pos, duid, algid, kid, voice) in enumerate(plan):
+        for j, f in enumerate(frames[9 * i:9 * i + 9]):
+            check(f.index == j and f.duid == duid and f.nac == P25_NAC
+                  and f.decrypted == (algid == ALGID_DES_OFB)
+                  and np.array_equal(f.bits, voice[j]),
+                  f"P25: LDU {i} codeword {j} not recovered")
+    swapped = {0x12: P25_KEYS[0x34], 0x34: P25_KEYS[0x12]}
+    wrong = p25_voice(outs, swapped)
+    for i, (pos, duid, algid, kid, voice) in enumerate(plan):
+        same = [np.array_equal(f.bits, voice[j])
+                for j, f in enumerate(wrong[9 * i:9 * i + 9])]
+        want = [algid != ALGID_DES_OFB] * 9
+        check(same == want, f"P25: LDU {i} with the wrong key: {same}")
+    n_enc = sum(p[2] == ALGID_DES_OFB for p in plan)
+    return min(delays), max(f[3] for f in found), len(plan), n_enc
+
+
+def p25_path(dev):
+    """The P25 receiver behind the channel block over 8 blocks, counted
+    like phase 3: every planted LDU found at its index and decoded (right
+    keys) or garbled (wrong keys); blocks 0-1 against the port on the CPU
+    (the channel and the soft symbols within 1e-5 of their max, dibits
+    equal but where a soft symbol lies within 1e-5 of a threshold, frame
+    events bit for bit); then timed and profiled."""
+    feeds, plan = p25_scene(dev)
+    (outs, _, states), launches = counted(
+        "P25 path", P25_PATH_KERNELS, N_BLOCKS,
+        lambda: run_inputs(p25_graph(dev), feeds, P25_FS))
+    delay, errs, n_ldu, n_enc = check_p25_outputs(outs, plan)
+    n_sym = sum(int(o["dibits"][1]) for o in outs)
+    print(f"P25 path: {n_sym} symbols from {N_BLOCKS * P25_BLOCK} IQ at "
+          f"{P25_FS / 1e6} Msamp/s; {n_ldu} LDUs found at their index + "
+          f"{delay} (most sync errors {errs}); the voice bits of all "
+          f"{n_ldu} back, the {n_enc} encrypted ones (two KIDs) garbled "
+          "with the keys swapped")
+    cpu, _, cstates = run_inputs(p25_graph("cpu"), to_cpu(feeds[:2]), P25_FS)
+    worst = dict(channel=0.0, soft=0.0)
+    exempt = 0
+    for b in range(2):
+        g, c = outs[b], cpu[b]
+        for port in ("channel", "soft", "dibits", "frames"):
+            check(int(g[port][1]) == int(c[port][1]),
+                  f"P25 {port} counts, block {b}")
+        for port in ("channel", "soft"):
+            gz, cz = g[port][0].cpu(), c[port][0]
+            err = float((gz - cz).abs().max() / cz.abs().max())
+            worst[port] = max(worst[port], err)
+            check(gz.shape == cz.shape and err <= P25_SOFT_REL,
+                  f"P25 {port} block {b}: card and CPU differ {err:.3e}")
+        soft = c["soft"][0]
+        near = ((soft[:, None] - torch.tensor([-1.0, 0.0, 1.0])).abs()
+                .amin(dim=1) < P25_SOFT_REL)
+        differ = g["dibits"][0].cpu() != c["dibits"][0]
+        check(not bool((differ & ~near).any()),
+              f"P25 dibits block {b}: card and CPU differ")
+        exempt += int(differ.sum())
+        check(same_bits(g["frames"][0], c["frames"][0]),
+              f"P25 frames block {b}: card and CPU differ")
+        for k in ("phase", "buf_count", "mu_int", "mu_frac"):
+            check(int(states[b]["fsk4"][k]) == int(cstates[b]["fsk4"][k]),
+                  f"P25 FSK4 {k}, card and CPU")
+    print(f"P25 path blocks 0-1, card vs CPU: channel within "
+          f"{worst['channel']:.3e} of the max, soft symbols within "
+          f"{worst['soft']:.3e} (bar {P25_SOFT_REL}); dibits equal "
+          f"({exempt} next to a threshold differ); frame events, counts "
+          "and the FSK4 phase and positions equal")
+    time_path("p25", p25_graph(dev), [f["iq"] for f in feeds], P25_FS,
+              P25_BLOCK, "Msamp/s", bits_ports=("frames",),
+              kernels=("polyphase_fir",))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the Audio FMCW radar
+# ---------------------------------------------------------------------------
+
+FMCW_BLOCK = 1 << 20            # 1024 sweeps of 1024 samples at 48 kHz
+FMCW_ECHOES = ((80, 0.5), (200, 0.3))   # (delay in samples, amplitude)
+FMCW_NOISE = 0.01
+FMCW_WRAP = 2 ** 32 - 2 ** 19   # the counter's start in the wrap run
+
+
+def fmcw_scene(dev, cfg, n_blocks=PATH_BLOCKS):
+    """``n_blocks`` blocks of the demo's microphone input: the chirp's
+    echoes FMCW_ECHOES plus noise."""
+    n = n_blocks * cfg.block_size
+    x = sum(simulate_echo(cfg, n, d, a) for d, a in FMCW_ECHOES) \
+        + np.random.default_rng(26).normal(0, FMCW_NOISE, n)
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    return [dict(rx=x[b * cfg.block_size:(b + 1) * cfg.block_size])
+            for b in range(n_blocks)]
+
+
+def fmcw_echo_bins(beat, cfg):
+    """The two strongest bins of the beat's sweep spectra (Hann window,
+    averaged over the sweeps but the stream's first), as beat bins: the
+    echoes of a real input mixed against ``conj(tx)`` lie at negative
+    frequencies, bin P - delay_to_bin."""
+    P = cfg.sweep_period
+    frames = beat.reshape(-1, P)[1:]
+    win = torch.hann_window(P, periodic=False, device=beat.device)
+    spec = torch.fft.fft(frames * win, dim=-1).abs().mean(dim=0)
+    top = torch.topk(spec, 2).indices.cpu().tolist()
+    return sorted((P - k) % P for k in top)
+
+
+def fmcw_range_error(got, want, beat, cfg):
+    """The largest difference of two range outputs' magnitudes over each
+    sweep's full scale, the most any bin of its windowed FFT can reach
+    (sum of w |beat|), and the largest difference in dB. The range keeps
+    the positive half, where a real input's echoes are not (see
+    :func:`fmcw_echo_bins`): its own max is leakage, and a float32 FFT's
+    error scales with the whole sweep, not with that max."""
+    P = cfg.sweep_period
+    win = torch.from_numpy(np.hanning(P).astype(np.float32))
+    scale = (beat.reshape(-1, P).abs() * win).sum(dim=1, keepdim=True)
+    mag = [10.0 ** (r.to(torch.float64) / 10.0) for r in (got, want)]
+    rel = float(((mag[0] - mag[1]).abs() / scale).max())
+    return rel, float((got - want).abs().max())
+
+
+def fmcw_run(fg, feeds, counter):
+    """Steps of the FMCW graph from the deramp's ``counter``: outputs and
+    the counter after every step."""
+    step = fg.compile().step
+    states, params = fg.init_states(), fg.init_params()
+    states["deramp"] = torch.full_like(states["deramp"], counter)
+    outs, after = [], []
+    for feed in feeds:
+        states, o = step(states, params, {
+            "rx": Stream.full(feed["rx"], sample_rate=48e3)})
+        outs.append(o)
+        after.append(int(states["deramp"]))
+    return outs, after
+
+
+def check_fmcw_outputs(outs, cfg, counter=0):
+    """Every block: the range count, both echoes in their beat bins,
+    ``tx`` equal to ``chirp_iq``'s real part at the block's counters, the
+    range profiles finite. Returns the bins."""
+    want = sorted(int(cfg.delay_to_bin(d)) for d, _ in FMCW_ECHOES)
+    for b, o in enumerate(outs):
+        check(int(o["range"].count) == cfg.n_sweeps, "FMCW range count")
+        got = fmcw_echo_bins(o["beat"].data, cfg)
+        check(got == want, f"FMCW block {b}: echoes at beat bins {got}, "
+              f"not {want}")
+        idx = (counter + b * cfg.block_size + torch.arange(
+            cfg.block_size, device=o["tx"].data.device)) & 0xFFFFFFFF
+        check(same_bits(o["tx"].data, chirp_iq(idx, cfg).real.contiguous()),
+              f"FMCW block {b}: tx is not chirp_iq's real part")
+        check(bool(torch.isfinite(o["range"].data).all()), "FMCW range finite")
+    return want
+
+
+def fmcw_path(dev):
+    """The FMCW radar at the demo's widths over 2^20-sample blocks: both
+    echoes in their beat bins, ``tx`` equal to ``chirp_iq``'s real part;
+    block 0 on the CPU (``beat``, ``tx`` within 1e-6, ``range``'s
+    magnitudes within 1e-5 of each sweep's full scale); a run across the
+    counter's 2^32 wrap whose counters equal the CPU's; then timed and
+    profiled."""
+    cfg = FMCWConfig(block_size=FMCW_BLOCK)
+    feeds = fmcw_scene(dev, cfg)
+    (outs, _), launches = counted(
+        "FMCW path", (), PATH_BLOCKS,
+        lambda: fmcw_run(build_fmcw(cfg, device=dev)[0], feeds, 0))
+    want = check_fmcw_outputs(outs, cfg)
+    cpu, _ = fmcw_run(build_fmcw(cfg, device="cpu")[0], to_cpu(feeds[:1]), 0)
+    err = {}
+    for port in ("beat", "tx"):
+        g, c = outs[0][port].data.cpu(), cpu[0][port].data
+        err[port] = float((g - c).abs().max() / max(float(c.abs().max()),
+                                                     1.0))
+    err["range"], err["range_db"] = fmcw_range_error(
+        outs[0]["range"].data.cpu(), cpu[0]["range"].data,
+        cpu[0]["beat"].data, cfg)
+    print(f"FMCW block 0, card vs CPU: beat {err['beat']:.3e}, tx "
+          f"{err['tx']:.3e} (bar 1e-6); range magnitudes "
+          f"{err['range']:.3e} of the sweep's full scale (bar 1e-5), "
+          f"{err['range_db']:.3e} dB at most")
+    check(err["beat"] <= 1e-6 and err["tx"] <= 1e-6,
+          "FMCW beat or tx: card and CPU differ")
+    check(err["range"] <= 1e-5, "FMCW range: card and CPU differ")
+    runs = [fmcw_run(build_fmcw(cfg, device=d)[0], f, FMCW_WRAP)
+            for d, f in ((dev, feeds[:2]), ("cpu", to_cpu(feeds[:2])))]
+    (go, gc), (co, cc) = runs
+    check(gc == cc == [(FMCW_WRAP + (b + 1) * cfg.block_size) % 2 ** 32
+                       for b in range(2)], f"FMCW wrap counters {gc} {cc}")
+    check_fmcw_outputs(go, cfg, FMCW_WRAP)
+    for b in range(2):
+        e = float((go[b]["beat"].data.cpu() - co[b]["beat"].data).abs().max())
+        check(e <= 1e-6, f"FMCW wrap block {b}: beat, card and CPU")
+    print(f"FMCW path: {PATH_BLOCKS} blocks of {cfg.block_size} samples "
+          f"({cfg.n_sweeps} sweeps of {cfg.sweep_period}); echoes at beat "
+          f"bins {want} (delay_to_bin of {[d for d, _ in FMCW_ECHOES]}), "
+          "tx = chirp_iq's real part; across the 2^32 wrap the "
+          "counters equal the CPU's")
+    time_path("fmcw", build_fmcw(cfg, device=dev)[0],
+              [f["rx"] for f in feeds], cfg.sample_rate, cfg.block_size,
+              "Msamp/s")
+    return launches
+
+
 def profile_chain(run, step_ms: float, label: str, kernels=()):
     """Kernel time per step and by name, from torch.profiler over 5
     steps. The busy share is that kernel time over ``step_ms``, the
@@ -3284,6 +3650,8 @@ def main() -> int:
     for name in DECODE_KERNELS:
         launches[name] = dec_launches[name]
     small_blocks_phase(dev)
+    launches["xlating_fir_block"] += p25_path(dev)["xlating_fir_block"]
+    fmcw_path(dev)
 
     table = []
     for r in rows:
