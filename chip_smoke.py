@@ -113,7 +113,23 @@ failure of which exits non-zero:
     beat bins, ``tx`` equal to ``chirp_iq``'s real part, block 0 against
     the CPU (``beat`` and ``tx`` within 1e-6, the range magnitudes within
     1e-5 of each sweep's full scale), a run across the deramp counter's
-    2^32 wrap whose counters equal the CPU's; timed and profiled.
+    2^32 wrap whose counters equal the CPU's; timed and profiled;
+17. the multi-device patterns (``parallel_path``) on a one-rank NCCL
+    process group (a file rendezvous, destroyed after the phase), each
+    module on a one-rank "cuda" ``DeviceMesh``: the ``(chan, time)``
+    ``ShardedWBFMBank`` (8 channels of 2^20 at 3.2 Msamp/s, an FM
+    station with a 1 kHz tone on each at linspace(-1.2, 1.2) MHz, 8
+    blocks; B3's block entry a channel row) against the serial chain on
+    the card (above 80 dB, tones within 5 Hz) and blocks 0-1 against the
+    port on a gloo "cpu" mesh (audio within 1e-5 of the max; counts,
+    ``lo_phase`` and mu equal); ``TPFIRDecimator`` at tp = 1 (1025 taps,
+    decim 4, 8 blocks of 2^20 real samples; B3's frame entry) within 1e-6
+    of ``FIRDecimator``; ``sharded_music_spectrum`` at dev = 1 (8
+    antennas, 512 snapshots, 360 angles, two sources) within 0.2 dB of
+    ``music_spectrum``, peaks within 1 degree; ``StagePipeline`` of one
+    stage chaining the four WBFM stage functions (8 microbatches of
+    2^20; B3's block entry) above 100 dB against ``build_wbfm``, the tone
+    back; each timed (Mchansamp/s, Msamp/s, scans/s) and profiled.
 
 The FSM kernel's cases run at the burst path's [1, 2^20] (its row) and
 at the decoder-bank shape [64, 2^14], the latter also with a smoothed
@@ -151,7 +167,9 @@ step).
 B1's row counts the launches of the cascade chain and of the P25 path;
 its cases also run at the AM shape (decim 16) and the P25 shape (decim
 32, 768 taps, 2^14 outputs). B3's row counts the launches of both its
-entry points and times the block entry point, which the cascade chain's
+entry points, over the cascade chain and the parallel path (the bank's
+64, the TP FIR's 8 and the pipeline's 8), and times the block entry
+point, which the cascade chain's
 ``FIRDecimator`` launches; the frame entry point is timed on the
 ``time`` lines only.
 
@@ -161,16 +179,22 @@ limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import datetime
+import functools
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from grbaz_tpu_torch.core.block import FnBlock
 from grbaz_tpu_torch.core.executor import InputSpec, StreamExecutor
@@ -211,7 +235,7 @@ from grbaz_tpu_torch.ops.cuda import vrr_walk as vw
 from grbaz_tpu_torch.ops.cuda import xlating_fir as xf
 from grbaz_tpu_torch.ops.cuda import xlating_fir_ctaps as xc
 from grbaz_tpu_torch.ops.wbfm_frontend import rotated_taps
-from grbaz_tpu_torch.ops.demod import AMDemod
+from grbaz_tpu_torch.ops.demod import AMDemod, QuadratureDemod
 from grbaz_tpu_torch.ops.fec import GLFSRSource, PNBERv, ViterbiDecoder
 from grbaz_tpu_torch.ops.fir import FIRDecimator, FreqXlatingFIRDecimator
 from grbaz_tpu_torch.ops.fsk4 import P25_SYMBOL_RATE
@@ -223,6 +247,11 @@ from grbaz_tpu_torch.ops.resampler import (FractionalResampler,
                                            resample_block_rational)
 from grbaz_tpu_torch.ops.spectral import PowerSpectrum, Vectorize
 from grbaz_tpu_torch.parallel.channel_bank import DynamicChannelBank
+from grbaz_tpu_torch.parallel.doa import (sharded_music_spectrum,
+                                          simulate_snapshots)
+from grbaz_tpu_torch.parallel.pipeline import StagePipeline, _wbfm_stages
+from grbaz_tpu_torch.parallel.tp import TPFIRDecimator
+from grbaz_tpu_torch.parallel.wbfm_bank import BankConfig, ShardedWBFMBank
 from grbaz_tpu_torch.utils import acars
 
 FS = 3.2e6
@@ -432,11 +461,18 @@ def bound_ms(nbytes: int, flops: int):
 # phases
 # ---------------------------------------------------------------------------
 
-def report():
-    smi = subprocess.run(
+@functools.lru_cache(maxsize=None)
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them;
+    printed beside every time."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def report():
+    smi = card()
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
@@ -514,6 +550,12 @@ def kernel_cases(dev):
                          4 * BLOCK)
     sync_xs = [f[tpad_sync - 1:] for f in sync_frames]
     sync_tail = torch.randn(tpad_sync, generator=gen, device=dev)
+    # B3 at the parallel path's TP FIR shape: float32 frames at decim 4
+    h_tp = torch.from_numpy(fir.prepare_taps(TP_TAPS, TP_DECIM)).to(dev)
+    tpad_tp, n_tp = h_tp.shape[0], BLOCK // TP_DECIM
+    tp_frames = copies(lambda: torch.randn(tpad_tp - 1 + BLOCK,
+                                           generator=gen, device=dev),
+                       4 * BLOCK)
     return [ctaps_case(h_chan, inc, tail, xs),
         dict(name="xlating_fir_block",
              kernel=lambda i: xf.xlating_fir_block(
@@ -597,6 +639,21 @@ def kernel_cases(dev):
              geometry=tiling.for_tensor(sync_xs[0], BLOCK, tpad_sync, 1, 4),
              nbytes=4 * (tpad_sync - 1 + BLOCK) + 4 * tpad_sync + 4 * BLOCK,
              flops=2 * tpad_sync * BLOCK),
+        dict(name="fir_decimate_frame",
+             shape=f"TP FIR f32, frame entry, decim {TP_DECIM}, "
+             f"{tpad_tp} taps",
+             kernel=lambda i: fd.fir_decimate_frame(
+                 tp_frames[i % len(tp_frames)], h_tp, TP_DECIM),
+             plain=lambda i: fd.fir_decimate_frame_plain(
+                 tp_frames[i % len(tp_frames)], h_tp, TP_DECIM),
+             library=lambda i: torch.nn.functional.conv1d(
+                 tp_frames[i % len(tp_frames)][None, None],
+                 h_tp[None, None], stride=TP_DECIM),
+             rel=TP_REL,
+             geometry=tiling.for_tensor(tp_frames[0], n_tp, tpad_tp,
+                                        TP_DECIM, 4),
+             nbytes=4 * (tpad_tp - 1 + BLOCK) + 4 * tpad_tp + 4 * n_tp,
+             flops=2 * tpad_tp * n_tp),
         bank_case(dev, gen, h_chan),
         fsm_case(dev, 3, 1, BLOCK, "burst path"),
         fsm_case(dev, 4, 64, 1 << 14, "decoder bank"),
@@ -1020,7 +1077,7 @@ def check_kernels(cases):
                                                        c["plain"](0))
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        bar = 1e-5 * float(ref.abs().max())
+        bar = c.get("rel", 1e-5) * float(ref.abs().max())
         c["max_abs_err"] = err
         label = c["name"] + (f" [{c['shape']}]" if "shape" in c else "")
         print(f"kernel {label}: max_abs_err {err:.3e} (bar {bar:.3e}), "
@@ -1315,15 +1372,16 @@ def run_graph(fg, blocks, rate, control=None, abs_index=None):
                       abs_index)[0]
 
 
-def counted(what, kernels, n_blocks, fn):
+def counted(what, kernels, n_blocks, fn, per_block=1):
     """Run ``fn()`` with every launch count set to 0 just before it; each
-    kernel of ``kernels`` must launch once per block, every other none."""
+    kernel of ``kernels`` must launch ``per_block`` times a block, every
+    other none."""
     reset_launches()
     out = fn()
     counts = launch_counts()
     print(f"{what} launches over {n_blocks} blocks: {counts}")
     for name, n in counts.items():
-        want = n_blocks if name in kernels else 0
+        want = n_blocks * per_block if name in kernels else 0
         check(n == want, f"{what} launched {name} {n} times, not {want}")
     return out, counts
 
@@ -1392,11 +1450,20 @@ def time_path(label, fg, xs, rate, per_step, unit, scale=1e6, params=None,
               steps=10, bits_ports=(), kernels=()):
     """Median CUDA-event step time over 3 rounds, the rate (``per_step``
     items a step, in units of ``scale`` a second), and the profiled kernel
-    time and idle share (and that of the named ``kernels``)."""
-    run = graph_timer(fg, xs, rate, params, bits_ports=bits_ports)
+    time and idle share (and that of the named ``kernels``); the card's
+    name and power limit are printed beside the time."""
+    return time_run(label, graph_timer(fg, xs, rate, params,
+                                       bits_ports=bits_ports),
+                    per_step, unit, scale, steps, kernels)
+
+
+def time_run(label, run, per_step, unit, scale=1e6, steps=10, kernels=()):
+    """:func:`time_path` for any ``run(steps)`` timer (``graph_timer``,
+    ``step_timer``)."""
     ms = statistics.median(run(steps) for _ in range(3))
     print(f"path {label}: step {ms:.4f} ms (events, median of 3 rounds of "
-          f"{steps}) = {per_step / (ms / 1e3) / scale:.2f} {unit}")
+          f"{steps}) = {per_step / (ms / 1e3) / scale:.2f} {unit} "
+          f"({card()})")
     profile_chain(run, ms, label, kernels)
     return ms
 
@@ -3513,6 +3580,315 @@ def fmcw_path(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the multi-device patterns at one rank (parallel_path)
+# ---------------------------------------------------------------------------
+
+PAR_CHANNELS = 8          # the JAX scaling bench's bank (benchmarks.py:553)
+PAR_FREQS = np.linspace(-1.2e6, 1.2e6, PAR_CHANNELS)
+PAR_CPU_BLOCKS = 2
+TP_TAPS = np.sinc(np.linspace(-8, 8, 1025)).astype(np.float32)
+TP_DECIM = 4
+# B3 against its plain version at the TP FIR's shape, relative to the max:
+# two float32 orders of the 1028-tap sum (the plain polyphase product and
+# the strided windows) differ by 7.7e-7 of the max over 2^18 outputs
+TP_REL = 2e-6
+MUSIC_ANGLES = (60.0, 110.0)  # two sources on the 0.5-degree grid
+
+
+@contextlib.contextmanager
+def one_rank_world(dev):
+    """A one-rank NCCL process group on the card (a file rendezvous in a
+    temporary directory), destroyed on exit so that later phases are
+    untouched."""
+    torch.cuda.set_device(torch.cuda.current_device())
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{d}/rendezvous", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=120),
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            check(dist.get_backend() == "nccl", "the process group is NCCL")
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def card_mesh(names):
+    """A one-rank "cuda" mesh over the NCCL group, with dims ``names``."""
+    return init_device_mesh("cuda", (1,) * len(names),
+                            mesh_dim_names=tuple(names))
+
+
+def cpu_mesh(names):
+    """A one-rank "cpu" mesh over a gloo group of its own, for the CPU
+    check (the NCCL group carries no CPU tensors)."""
+    g = dist.new_group(backend="gloo")
+    return DeviceMesh.from_group(
+        [g] * len(names) if len(names) > 1 else g, "cpu",
+        torch.zeros((1,) * len(names), dtype=torch.int64),
+        mesh_dim_names=tuple(names))
+
+
+def step_timer(step):
+    """``run(steps)``: CUDA-event ms per call of ``step(i)`` (which returns
+    a float32 checksum tensor that must stay finite)."""
+    acc = {"sum": torch.zeros((), device="cuda"), "i": 0}
+
+    def run(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            acc["sum"] = acc["sum"] + step(acc["i"])
+            acc["i"] += 1
+        end.record()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(acc["sum"])), "path checksum")
+        return start.elapsed_time(end) / steps
+
+    run(3)  # warm-up
+    return run
+
+
+def par_stations(dev, cfg, n_blocks):
+    """One FM station a channel row at PAR_FREQS, each carrying TONE_HZ
+    at DEVIATION_HZ, noise 40 dB down; complex64 [C, n_blocks * N]."""
+    n = n_blocks * cfg.block_size
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    tone = (DEVIATION_HZ / TONE_HZ) * torch.sin(
+        2 * np.pi * torch.frac(t * (TONE_HZ / cfg.sample_rate)))
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for f in PAR_FREQS:
+        ph = 2 * np.pi * torch.frac(t * (f / cfg.sample_rate)) + tone
+        noise = torch.randn(n, 2, generator=gen, device=dev) * 0.01
+        rows.append(torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+                    + torch.view_as_complex(noise))
+    return torch.stack(rows)
+
+
+def bank_run(bank, x, n_blocks):
+    """Steps of ``bank`` over the first ``n_blocks`` blocks of the global
+    ``x``: per block the compacted audio of every channel and the
+    rank's state."""
+    state = bank.shard_state(bank.init_state())
+    params = bank.init_params(PAR_FREQS)
+    n = bank.cfg.block_size
+    out = []
+    for b in range(n_blocks):
+        state, (a, c) = bank.step(state, params,
+                                  bank.shard_input(x[:, b * n:(b + 1) * n]))
+        out.append((bank.compact_audio(a, c), c, state))
+    return out
+
+
+def bank_serial(cfg, x, n_blocks, dev):
+    """The serial chain a channel on the card (FreqXlatingFIRDecimator on
+    B1 -> QuadratureDemod -> FractionalResampler), as the JAX package's
+    bank test holds its bank."""
+    taps = fir.low_pass_taps(1.0, cfg.sample_rate,
+                             cfg.channel_width / 2 + cfg.transition / 2,
+                             cfg.transition)
+    audio = []
+    for ch, f in enumerate(PAR_FREQS):
+        fg = Flowgraph("serial")
+        chan = FreqXlatingFIRDecimator(taps, cfg.decim, f, cfg.sample_rate,
+                                       name="chan", device=dev)
+        dem = QuadratureDemod(cfg.quad_rate / (2 * np.pi * cfg.max_deviation),
+                              name="demod", device=dev)
+        rs = FractionalResampler(cfg.block_size // cfg.decim, cfg.ratio,
+                                 dtype=torch.float32, name="rs", device=dev)
+        fg.input("iq", chan)
+        fg.chain(chan, dem, rs)
+        fg.output("audio", rs)
+        n = cfg.block_size
+        outs = run_graph(fg, [x[ch, b * n:(b + 1) * n]
+                              for b in range(n_blocks)], cfg.sample_rate)
+        audio.append(torch.cat(valid(outs, "audio")).cpu().numpy())
+    return audio
+
+
+def parallel_bank(dev):
+    cfg = BankConfig(channels=PAR_CHANNELS, block_size=BLOCK)
+    x = par_stations(dev, cfg, N_BLOCKS)
+    bank = ShardedWBFMBank(cfg, card_mesh(("chan", "time")))
+    out, launches = counted(
+        "parallel bank", ("fir_decimate_frame",), N_BLOCKS,
+        lambda: bank_run(bank, x, N_BLOCKS), per_block=PAR_CHANNELS)
+    audio = [np.concatenate([o[0][ch] for o in out])
+             for ch in range(PAR_CHANNELS)]
+    serial = bank_serial(cfg, x, N_BLOCKS, dev)
+    worst_snr, worst_df = np.inf, 0.0
+    for ch in range(PAR_CHANNELS):
+        check(len(audio[ch]) == len(serial[ch]) and len(audio[ch]) > 0,
+              f"bank channel {ch} audio count")
+        check(bool(np.isfinite(audio[ch]).all()), f"bank channel {ch} finite")
+        s = snr_db(serial[ch], audio[ch])
+        f, sinad = tone_sinad(audio[ch][len(audio[ch]) // N_BLOCKS:],
+                              cfg.audio_rate)
+        worst_snr, worst_df = min(worst_snr, s), max(worst_df,
+                                                       abs(f - TONE_HZ))
+        check(s > 80.0, f"bank channel {ch}: {s:.1f} dB against the serial "
+              "chain")
+        check(abs(f - TONE_HZ) < 5.0, f"bank channel {ch} tone at {f:.2f} Hz")
+    print(f"parallel bank: {PAR_CHANNELS} channels x {N_BLOCKS} blocks of "
+          f"{BLOCK} at {cfg.sample_rate / 1e6} Msamp/s over (chan, time) = "
+          f"(1, 1) on NCCL; audio against the serial chain (B1) at least "
+          f"{worst_snr:.1f} dB (bar 80), tones within {worst_df:.3f} Hz")
+    # blocks 0-1 on the CPU, over a gloo mesh of their own
+    cpu_bank = ShardedWBFMBank(cfg, cpu_mesh(("chan", "time")))
+    cpu = bank_run(cpu_bank, x[:, :PAR_CPU_BLOCKS * BLOCK].cpu(),
+                   PAR_CPU_BLOCKS)
+    err = 0.0
+    for b in range(PAR_CPU_BLOCKS):
+        (ga, gc, gs), (ca, cc, cs) = out[b], cpu[b]
+        check(torch.equal(gc.cpu(), cc), f"bank block {b} counts card/CPU")
+        for k in ("lo_phase", "rs_mu_int", "rs_mu_frac"):
+            check(torch.equal(gs[k].cpu(), cs[k]), f"bank block {b} {k} "
+                  "card/CPU")
+        for ch in range(PAR_CHANNELS):
+            scale = float(np.abs(ca[ch]).max())
+            e = float(np.abs(ga[ch] - ca[ch]).max()) / scale
+            err = max(err, e)
+            check(e <= 1e-5, f"bank block {b} channel {ch} card/CPU {e:.3e}")
+    print(f"parallel bank blocks 0-1, card vs CPU (gloo mesh): audio within "
+          f"{err:.3e} of the max (bar 1e-5); counts, lo_phase, rs_mu_int, "
+          "rs_mu_frac equal")
+    state = bank.shard_state(bank.init_state())
+    params = bank.init_params(PAR_FREQS)
+    blocks = [x[:, b * BLOCK:(b + 1) * BLOCK] for b in range(N_BLOCKS)]
+
+    def step(i):
+        nonlocal state
+        state, (a, _) = bank.step(state, params, blocks[i % N_BLOCKS])
+        return a.sum()
+
+    time_run("parallel_bank", step_timer(step), PAR_CHANNELS * BLOCK,
+             "Mchansamp/s")
+    return launches
+
+
+def parallel_tp(dev):
+    x = torch.randn(N_BLOCKS * BLOCK, generator=torch.Generator(
+        device=dev).manual_seed(15), device=dev)
+    blocks = [x[b * BLOCK:(b + 1) * BLOCK] for b in range(N_BLOCKS)]
+    blk = TPFIRDecimator(TP_TAPS, TP_DECIM, card_mesh(("tp",)),
+                         dtype=torch.float32, name="tp")
+    check(np.array_equal(blk.h_chunks[0], fir.prepare_taps(TP_TAPS, TP_DECIM)),
+          "shard_taps at one shard equals prepare_taps")
+    fg = one_block_graph(blk)
+    outs, launches = counted("parallel TP FIR", ("fir_decimate_frame",),
+                             N_BLOCKS, lambda: run_graph(fg, blocks, 1.0))
+    got = torch.cat(valid(outs, "out"))
+    ref = torch.cat(valid(run_graph(one_block_graph(FIRDecimator(
+        TP_TAPS, TP_DECIM, dtype=torch.float32, name="fir", device=dev)),
+        blocks, 1.0), "out"))
+    # FIRDecimator launches the same kernel: hold both against B3's plain
+    # version over the frames the block carries too
+    h = torch.from_numpy(fir.prepare_taps(TP_TAPS, TP_DECIM)).to(dev)
+    tail = torch.zeros(h.shape[0] - 1, device=dev)
+    plain = []
+    for xb in blocks:
+        frame = torch.cat([tail, xb])
+        plain.append(fd.fir_decimate_frame_plain(frame, h, TP_DECIM))
+        tail = frame[-tail.shape[0]:]
+    plain = torch.cat(plain)
+    check(got.shape == ref.shape == plain.shape, "TP FIR output length")
+    err = float((got - ref).abs().max() / ref.abs().max())
+    err_plain = float((got - plain).abs().max() / plain.abs().max())
+    print(f"parallel TP FIR: {len(TP_TAPS)} taps at decim {TP_DECIM}, tp = 1 "
+          f"on NCCL, {N_BLOCKS} blocks of {BLOCK}: against FIRDecimator "
+          f"within {err:.3e} of the max, against B3's plain version over "
+          f"the carried frames within {err_plain:.3e} (bars 1e-6, "
+          f"{TP_REL:.0e})")
+    check(err <= 1e-6, "TP FIR and FIRDecimator differ")
+    check(err_plain <= TP_REL, "TP FIR and B3's plain version differ")
+    time_path("parallel_tp", fg, blocks, 1.0, BLOCK, "Msamp/s")
+    return launches
+
+
+def parallel_music(dev):
+    m, navg = 8, 512
+    x = torch.from_numpy(simulate_snapshots(m, MUSIC_ANGLES, navg,
+                                            snr_db=20.0, seed=3)).to(dev)
+    steer = torch.from_numpy(doa.ula_steering_vectors(m, 360)).to(dev)
+    mesh = card_mesh(("dev",))
+    got, launches = counted("parallel MUSIC", (), 1,
+                            lambda: sharded_music_spectrum(x, steer, 2, mesh))
+    ref, _ = doa.music_spectrum(x, steer, 2)
+    db = float((10 * torch.log10(got / ref)).abs().max())
+    idx, _ = doa.top_n_peaks(got, 2)
+    peaks = sorted(float(i) * 0.5 for i in idx.cpu())
+    off = max(abs(p - a) for p, a in zip(peaks, MUSIC_ANGLES))
+    print(f"parallel MUSIC: {m} antennas, {navg} snapshots, 360 angles, dev "
+          f"= 1 on NCCL: within {db:.4f} dB of music_spectrum (bar 0.2), "
+          f"peaks {peaks} (planted {list(MUSIC_ANGLES)})")
+    check(db < 0.2, "sharded MUSIC and music_spectrum differ")
+    check(off <= 1.0, "sharded MUSIC peaks more than 1 degree off")
+    time_run("parallel_music", step_timer(lambda i: sharded_music_spectrum(
+        x, steer, 2, mesh).sum()), 1, "scans/s", scale=1.0)
+    return launches
+
+
+def parallel_pipeline(dev):
+    cfg = WBFMConfig(block_size=BLOCK, center_freq=STATION_HZ)
+    fns, inits, buf_shape = _wbfm_stages(cfg, dev)
+
+    def chain(states, buf):
+        new = []
+        for fn, st in zip(fns, states):
+            st, buf = fn(st, buf)
+            new.append(st)
+        return tuple(new), buf
+
+    pipe = StagePipeline([chain], [tuple(inits)], buf_shape,
+                         card_mesh(("stage",)))
+    iq = synth_fm(N_BLOCKS * BLOCK, dev, seed=3)
+    mb = torch.stack([torch.stack([iq[b * BLOCK:(b + 1) * BLOCK].real,
+                                   iq[b * BLOCK:(b + 1) * BLOCK].imag])
+                      for b in range(N_BLOCKS)])
+    (states, out), launches = counted(
+        "parallel pipeline", ("fir_decimate_frame",), N_BLOCKS,
+        lambda: pipe.run(pipe.init_states(), mb))
+    check(pipe.ticks == N_BLOCKS, f"pipeline ticks {pipe.ticks}")
+    n = out[:, 1, BLOCK - 1].to(torch.int64).tolist()
+    got = np.concatenate([out[b, 0, :n[b]].cpu().numpy()
+                          for b in range(N_BLOCKS)])
+    ref = np.concatenate([a.cpu().numpy() for a in valid(run_chain(
+        cfg, dev, iq, N_BLOCKS), "audio")])
+    check(len(got) == len(ref), "pipeline audio count")
+    s = snr_db(ref, got)
+    f, sinad = tone_sinad(got[len(got) // N_BLOCKS:], cfg.audio_rate)
+    print(f"parallel pipeline: the four WBFM stages in one stage over a "
+          f"one-rank NCCL stage mesh, {N_BLOCKS} microbatches of {BLOCK}: "
+          f"{s:.1f} dB against build_wbfm (bar 100); tone {f:.2f} Hz, "
+          f"SINAD {sinad:.2f} dB")
+    check(s > 100.0, "pipeline and build_wbfm differ")
+    check(abs(f - TONE_HZ) < 5.0 and sinad > 40.0, "pipeline tone")
+    carry = {"states": pipe.init_states()}
+
+    def step(i):
+        # the states run on from call to call, as a stream's would
+        carry["states"], out = pipe.run(carry["states"], mb)
+        return out[:, 0].sum()
+
+    time_run("parallel_pipeline", step_timer(step), N_BLOCKS * BLOCK,
+             "Msamp/s", steps=3)
+    return launches
+
+
+def parallel_path(dev):
+    """The JAX package's four multi-device patterns at world size 1 over
+    NCCL, through the port's kernels: the (chan, time) WBFM bank, the
+    tap-sharded FIR, sharded MUSIC and the stage pipeline. Returns the
+    kernels' launches."""
+    with one_rank_world(dev):
+        parts = [part(dev) for part in (
+            parallel_bank, parallel_tp, parallel_music, parallel_pipeline)]
+    return {name: sum(p[name] for p in parts) for name in parts[0]}
+
+
 def profile_chain(run, step_ms: float, label: str, kernels=()):
     """Kernel time per step and by name, from torch.profiler over 5
     steps. The busy share is that kernel time over ``step_ms``, the
@@ -3568,7 +3944,8 @@ def chain_timing(dev, iq, cfg, label, rounds=6, steps=20):
         med = statistics.median(ts)
         print(f"{label} [{b}] step ms per round (events): "
               + ", ".join(f"{t:.4f}" for t in ts)
-              + f"; median {med:.4f} ms = {BLOCK / med / 1e3:.2f} Msamp/s")
+              + f"; median {med:.4f} ms = {BLOCK / med / 1e3:.2f} Msamp/s "
+              f"({card()})")
     profile_chain(runs["auto"], statistics.median(times["auto"]), label)
 
 
@@ -3652,6 +4029,8 @@ def main() -> int:
     small_blocks_phase(dev)
     launches["xlating_fir_block"] += p25_path(dev)["xlating_fir_block"]
     fmcw_path(dev)
+    launches["fir_decimate_frame"] += parallel_path(dev)[
+        "fir_decimate_frame"]
 
     table = []
     for r in rows:

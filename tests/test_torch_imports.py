@@ -42,7 +42,8 @@ def test_importing_every_module_loads_no_jax():
 
 # the modules of BASELINE configs 1, 3, 4 and 5, of the burst path, of
 # the simple and per-sample blocks with their two kernels, and of the
-# decoders and FEC with their four, and of the P25 and FMCW chains
+# decoders and FEC with their four, of the P25 and FMCW chains, and the
+# multi-device patterns
 NEW_MODULES = {f"grbaz_tpu_torch.{m}" for m in (
     "ops.agc", "ops.spectral", "ops.colour", "ops.segments", "ops.detect",
     "ops.doa", "models.spectral", "parallel.channel_bank", "ops.burst",
@@ -52,7 +53,8 @@ NEW_MODULES = {f"grbaz_tpu_torch.{m}" for m in (
     "ops.cuda.viterbi", "ops.cuda.acars_fsm", "ops.cuda.manchester_fsm",
     "ops.cuda.dpll_walk", "utils.des", "ops.p25_fec", "ops.p25_ldu",
     "ops.p25", "ops.fsk4", "models.p25", "models.p25_voice",
-    "viz.traffic", "models.fmcw")}
+    "viz.traffic", "models.fmcw", "parallel._collectives", "parallel.doa",
+    "parallel.tp", "parallel.wbfm_bank", "parallel.pipeline")}
 
 
 @pytest.mark.parametrize("path", _port_sources(),
