@@ -129,7 +129,30 @@ failure of which exits non-zero:
     ``music_spectrum``, peaks within 1 degree; ``StagePipeline`` of one
     stage chaining the four WBFM stage functions (8 microbatches of
     2^20; B3's block entry) above 100 dB against ``build_wbfm``, the tone
-    back; each timed (Mchansamp/s, Msamp/s, scans/s) and profiled.
+    back; each timed (Mchansamp/s, Msamp/s, scans/s) and profiled;
+18. the main path fed from the wire (``ingest_path``): an FM station
+    quantized to BorIP ishort and sent over loopback UDP at the RTL rate
+    (3.2 Msamp/s, 2 s, packets of DEFAULT_PAYLOAD) in this process to the
+    port's UDPSampleReceiver (its native engine asserted), whose
+    ``WireSource`` keeps every read until it holds a 2^20 block and hands
+    on the partial last one with its count, through
+    ``StreamPump(drop=True, inflight=3)`` into the cascade chain (B1, B3);
+    no packet dropped, no pump overrun, every block out, the audio
+    bit-equal to the Flowgraph over the same samples, the tone within 5
+    Hz above 40 dB; prints the wall-clock rate, each block's latency (its
+    last packet sent to its audio delivered), the card's idle share (a
+    profiled rerun), then a sweep of faster and unpaced sends (the
+    highest rate that arrived with no drop, the drops at the fastest);
+19. every ported app through its ``main(argv)`` (``apps_phase``) with
+    ``--device cuda`` and again with ``--device cpu`` on the same argv:
+    ``rtl_fm`` from ``--synth``, ``--borip`` (the port's BorIPServer
+    serving a FileDevice of the station paced at 3.2 Msamp/s; the
+    client's drops read) and ``--input``, ``am_fft``, ``realtime_fft
+    --synth``, ``fac``, ``scanner`` and ``papr`` at their defaults; the
+    outputs agree with the CPU's (WAVs within 3 LSB, dB CSVs within a
+    printed LSB or 1e-4 of the frame's peak, images within a gradient
+    level, stdout equal), the tones, carrier and stations found; each
+    app's wall time and step time (CUDA events around each dispatch).
 
 The FSM kernel's cases run at the burst path's [1, 2^20] (its row) and
 at the decoder-bank shape [64, 2^14], the latter also with a smoothed
@@ -164,11 +187,14 @@ times a packet of the least length; K5's 64-sample head plus a map
 lookup a chunk; K6's samples times a fadd plus its pulses times a pulse
 step).
 
-B1's row counts the launches of the cascade chain and of the P25 path;
+B1's row counts the launches of the cascade chain, the P25 path, the
+ingest path and the apps (rtl_fm's three runs, am_fft); the bank's those
+of config 5 and the scanner app;
 its cases also run at the AM shape (decim 16) and the P25 shape (decim
 32, 768 taps, 2^14 outputs). B3's row counts the launches of both its
-entry points, over the cascade chain and the parallel path (the bank's
-64, the TP FIR's 8 and the pipeline's 8), and times the block entry
+entry points, over the cascade chain, the parallel path (the bank's
+64, the TP FIR's 8 and the pipeline's 8) and the ingest path, and times
+the block entry
 point, which the cascade chain's
 ``FIRDecimator`` launches; the frame entry point is timed on the
 ``time`` lines only.
@@ -183,19 +209,25 @@ import contextlib
 import dataclasses
 import datetime
 import functools
+import io
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import zlib
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from grbaz_tpu_torch.apps import (am_fft, fac, papr, realtime_fft, rtl_fm,
+                                  scanner)
 from grbaz_tpu_torch.core.block import FnBlock
 from grbaz_tpu_torch.core.executor import InputSpec, StreamExecutor
 from grbaz_tpu_torch.core.graph import Flowgraph
@@ -219,7 +251,9 @@ from grbaz_tpu_torch.ops.agc import AGC
 from grbaz_tpu_torch.ops.burst import (BurstBuffer, Burster, BursterConfig,
                                        BurstTagger, Gate, Merge, TimeKeeper,
                                        decode_abs_events)
-from grbaz_tpu_torch.ops.colour import Colouriser
+from grbaz_tpu_torch.net import borip_client, udp
+from grbaz_tpu_torch.net.borip_server import BorIPServer
+from grbaz_tpu_torch.ops.colour import Colouriser, thermal_gradient
 from grbaz_tpu_torch.ops.detect import Correlator, PeakDetector, RadarDetector
 from grbaz_tpu_torch.ops.cuda import acars_fsm as af
 from grbaz_tpu_torch.ops.cuda import build
@@ -3889,6 +3923,604 @@ def parallel_path(dev):
     return {name: sum(p[name] for p in parts) for name in parts[0]}
 
 
+# ---------------------------------------------------------------------------
+# the main path fed from the wire (ingest_path) and the apps (apps_phase)
+# ---------------------------------------------------------------------------
+
+INGEST_SECONDS = 2.0      # of signal at the RTL rate FS, paced
+INGEST_INFLIGHT = 3
+# the unpaced sweep: send rates (samples/s; None: as fast as the socket
+# takes them), INGEST_SWEEP_BLOCKS blocks each
+INGEST_SWEEP = (6.4e6, 12.8e6, 25.6e6, 51.2e6, None)
+INGEST_SWEEP_BLOCKS = 4
+INGEST_BURST = 16         # packets a send call
+APP_SECONDS = 1.0         # of input for rtl_fm's three sources
+INGEST_WAIT_S = 30.0      # deadline of a run after its last packet left
+
+
+class WireSource:
+    """A StreamPump source over a BorIP receiver. It accumulates every
+    read (a read hands out the whole packets that have arrived, and a
+    block straddles many) until it holds a whole block; once the
+    stream's end has been flagged and the ring is drained, it hands the
+    rest on as a partial block with its count. A short read is never
+    discarded."""
+
+    def __init__(self, rx, block: int, port: str = "iq"):
+        self.rx, self.block, self.port = rx, int(block), port
+        self.parts, self.have = [], 0
+        self.ended = self.drained = False
+        self.full_blocks = self.partial = 0
+
+    def __call__(self):
+        x, flags = self.rx.read_complex(self.block)
+        if len(x):
+            self.parts.append(x)
+            self.have += len(x)
+        # the flags are sticky over packets not yet read, so the end is
+        # known to be drained only by a read that comes back empty
+        self.drained = self.ended and len(x) == 0
+        self.ended |= bool(flags & stream_flags.STREAM_END)
+        if self.have >= self.block:
+            data = np.concatenate(self.parts)
+            rest = data[self.block:]
+            self.parts, self.have = ([rest] if len(rest) else []), len(rest)
+            self.full_blocks += 1
+            return {self.port: data[:self.block]}
+        if self.drained and self.have:
+            pad = np.zeros(self.block, np.complex64)
+            pad[:self.have] = np.concatenate(self.parts)
+            count, self.parts, self.have = self.have, [], 0
+            self.partial += 1
+            return {self.port: pad}, {self.port: count}
+        return None
+
+    @property
+    def done(self) -> bool:
+        return self.drained and not self.have
+
+
+def send_wire(tx, wire: bytes, rate, block: int, bursts=(INGEST_BURST,),
+              rx=None, ahead=None):
+    """Send ``wire`` (BorIP ishort bytes) in packets of DEFAULT_PAYLOAD,
+    ``bursts`` packets a call (cycled), paced at ``rate`` samples/s (None:
+    as fast as the socket takes them), then the end-of-stream packet.
+    With ``ahead``, never more than that many packets ahead of what the
+    receiver ``rx`` has taken off the socket. Returns the start time and,
+    for each block of ``block`` samples, the time its last packet left
+    (``time.perf_counter``)."""
+    pkt = udp.DEFAULT_PAYLOAD
+    block_bytes = 4 * block
+    t0 = time.perf_counter()
+    sent_at, next_end, off, i = [], block_bytes, 0, 0
+    while off < len(wire):
+        if rate:
+            due = t0 + off / 4 / rate
+            while True:
+                wait = due - time.perf_counter()
+                if wait <= 0:
+                    break
+                time.sleep(wait if wait > 2e-4 else 0)
+        end = min(off + bursts[i % len(bursts)] * pkt, len(wire))
+        check(tx.send_bytes(wire[off:end]) == end - off, "UDP send")
+        now = time.perf_counter()
+        while next_end <= end:
+            sent_at.append(now)
+            next_end += block_bytes
+        off, i = end, i + 1
+        if ahead is not None:
+            sent = -(-off // pkt)
+            limit = time.perf_counter() + INGEST_WAIT_S
+            while rx.stats()["packets"] < sent - ahead:
+                check(time.perf_counter() < limit, "the receiver stalled")
+                time.sleep(0.0002)
+    if len(wire) % block_bytes:
+        sent_at.append(time.perf_counter())
+    tx.end_stream()
+    return t0, sent_at
+
+
+def run_counted(fg, blocks, counts, rate):
+    """:func:`run_graph` with each block's valid count (a partial last
+    block): the outputs."""
+    step = fg.compile().step
+    states, params = fg.init_states(), fg.init_params()
+    outs = []
+    for x, c in zip(blocks, counts):
+        s = Stream.full(x, sample_rate=rate)
+        if c != x.shape[0]:
+            s = Stream(x, torch.full((), c, dtype=torch.int32,
+                                     device=x.device), s.meta)
+        states, o = step(states, params, {"iq": s})
+        outs.append({k: (v.data, v.count) for k, v in o.items()})
+    return outs
+
+
+def wire_blocks(wire: bytes, block: int, device):
+    """The samples on the wire as the chain's blocks (the last padded
+    with zeros) and their counts."""
+    x = udp.ishort_bytes_to_complex(wire)
+    blocks, counts = [], []
+    for b in range(0, len(x), block):
+        part = x[b:b + block]
+        counts.append(len(part))
+        pad = np.zeros(block, np.complex64)
+        pad[:len(part)] = part
+        blocks.append(torch.from_numpy(pad).to(device))
+    return blocks, counts
+
+
+def ingest_executor(cfg, device):
+    """``build_wbfm(cfg)`` in a StreamExecutor, stepped once on zeros and
+    reset (the warm-up's launches come before any count is read)."""
+    fg, _ = build_wbfm(cfg, device=device)
+    ex = StreamExecutor(fg, {"iq": InputSpec((cfg.block_size,), "complex64",
+                                             cfg.sample_rate)},
+                        device=device)
+    ex.step({"iq": np.zeros(cfg.block_size, np.complex64)})
+    return ex.reset()
+
+
+def ingest_run(ex, wire: bytes, rate, profile=False, drop=True, **send):
+    """One run of the ingest path on 127.0.0.1: ``wire`` sent at ``rate``
+    over BorIP UDP to a UDPSampleReceiver (the native engine), whose
+    WireSource feeds a StreamPump(drop=``drop``, inflight=3) into the
+    executor ``ex`` (from :func:`ingest_executor`). Returns the audio
+    blocks, the receiver's, source's and pump's counts, the wall time from
+    the first packet sent to the last audio delivered, each block's
+    latency (its last packet sent to its audio delivered) and, with
+    ``profile``, the kernels' device time over the run (torch.profiler).
+    ``send`` goes to :func:`send_wire` (``bursts``, ``ahead``)."""
+    block = ex.inputs["iq"].shape[0]
+    n_blocks = -(-len(wire) // (4 * block))
+    ex.reset()
+    rx = udp.UDPSampleReceiver(port=0, bor=True)
+    tx = udp.UDPSampleSender("127.0.0.1", rx.port, bor=True)
+    audio, delivered = [], []
+
+    def sink(d, c):
+        audio.append(np.array(d[:c]))
+        delivered.append(time.perf_counter())
+
+    src = WireSource(rx, block)
+    pump = StreamPump(ex, src, {"audio": sink}, drop=drop,
+                      inflight=INGEST_INFLIGHT)
+    prof = None
+    try:
+        check(rx._lib is not None, "the native BorIP engine is not in use")
+        pump.start()
+        with contextlib.ExitStack() as stack:
+            if profile:
+                prof = stack.enter_context(torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]))
+            t0, sent_at = send_wire(tx, wire, rate, block, rx=rx, **send)
+            deadline = time.perf_counter() + INGEST_WAIT_S
+            last, quiet = None, time.perf_counter()
+            while time.perf_counter() < deadline:
+                st = pump.stats()
+                if len(delivered) >= n_blocks or (
+                        src.done and st["queued"] == 0
+                        and st["blocks_out"] + st["overruns"]
+                        >= st["blocks_in"]):
+                    break
+                # a lost end-of-stream packet: stop once nothing moves
+                now = (rx.stats()["packets"], st["blocks_in"],
+                       st["blocks_out"])
+                if now != last:
+                    last, quiet = now, time.perf_counter()
+                elif time.perf_counter() - quiet > 2.0:
+                    break
+                time.sleep(0.0005)
+            if ex.device.type == "cuda":
+                torch.cuda.synchronize()
+    finally:
+        pump.stop()
+        rx_stats = rx.stats()
+        tx.close()
+        rx.close()
+    busy_ms = None
+    if prof is not None:
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation) / 1e3
+    wall = (delivered[-1] if delivered else time.perf_counter()) - t0
+    return dict(audio=audio, rx=rx_stats, pump=pump.stats(),
+                full_blocks=src.full_blocks, partial=src.partial,
+                n_blocks=n_blocks, wall_s=wall,
+                send_s=sent_at[-1] - t0 if sent_at else 0.0,
+                latency_s=[d - s for d, s in zip(delivered, sent_at)],
+                busy_ms=busy_ms, samples=len(wire) // 4)
+
+
+def check_ingest(run, ref_audio, what):
+    """A run that must lose nothing: no drop in the receiver or the pump,
+    every block out (the partial last one too), the audio bit-equal to
+    ``ref_audio`` (the Flowgraph over the same samples)."""
+    rx, st = run["rx"], run["pump"]
+    print(f"{what}: receiver {rx}, pump {st}, source {run['full_blocks']} "
+          f"full + {run['partial']} partial blocks of {run['n_blocks']}")
+    check(rx["dropped"] == 0 and rx["overruns"] == 0,
+          f"{what}: the receiver dropped packets")
+    check(st["overruns"] == 0, f"{what}: the pump dropped blocks")
+    check(st["blocks_out"] == run["n_blocks"] == len(run["audio"]),
+          f"{what}: {st['blocks_out']} of {run['n_blocks']} blocks came out")
+    check(len(ref_audio) == len(run["audio"]) and all(
+        np.array_equal(a, r) for a, r in zip(run["audio"], ref_audio)),
+        f"{what}: the audio differs from the Flowgraph run")
+
+
+def ingest_path(dev):
+    """The main path fed from the wire: an FM station (``synth_fm``)
+    quantized to BorIP ishort and sent at the RTL rate over loopback UDP
+    for INGEST_SECONDS, through the native receiver and the pump into the
+    cascade chain on the card (B1, B3). Checks no drop and no overrun,
+    every block out, audio bit-equal to the Flowgraph run over the same
+    samples, the tone; prints the ingest rate, the latency and the card's
+    idle share, then the unpaced sweep. Returns the kernels' launches of
+    the checked run."""
+    cfg = WBFMConfig(block_size=BLOCK, audio_chain="cascade",
+                     center_freq=STATION_HZ)
+    n = int(INGEST_SECONDS * FS)
+    wire = udp.complex_to_ishort_bytes(synth_fm(n, dev, seed=5).cpu().numpy())
+    blocks, counts = wire_blocks(wire, BLOCK, dev)
+    ref = [d[:int(c)].cpu().numpy() for d, c in (
+        o["audio"] for o in run_counted(build_wbfm(cfg, device=dev)[0],
+                                        blocks, counts, FS))]
+    del blocks
+    ex = ingest_executor(cfg, dev)
+    run, launches = counted("ingest path", MAIN_PATH_KERNELS, len(counts),
+                            lambda: ingest_run(ex, wire, FS))
+    check_ingest(run, ref, "ingest path")
+    audio = np.concatenate(run["audio"][1:])
+    f, sinad = tone_sinad(audio, cfg.audio_rate)
+    print(f"ingest path tone: {f:.2f} Hz, SINAD {sinad:.2f} dB over "
+          f"{len(audio)} audio samples")
+    check(abs(f - TONE_HZ) < 5.0, "ingest tone frequency")
+    check(sinad > 40.0, "ingest tone SINAD")
+    lat = np.array(run["latency_s"]) * 1e3
+    print(f"ingest path paced at {FS / 1e6:.2f} Msamp/s: {run['samples']} "
+          f"samples in {run['wall_s']:.4f} s from the first packet sent to "
+          f"the last audio delivered = {run['samples'] / run['wall_s'] / 1e6:.4f}"
+          f" Msamp/s wall-clock; latency (a block's last packet sent to its "
+          f"audio delivered) median {np.median(lat):.3f} ms, max "
+          f"{lat.max():.3f} ms over {len(lat)} blocks ({card()})")
+    prof = ingest_run(ex, wire, FS, profile=True)
+    check_ingest(prof, ref, "ingest path (profiled)")
+    busy = prof["busy_ms"] / (prof["wall_s"] * 1e3)
+    print(f"ingest path profiled run: kernels {prof['busy_ms']:.4f} ms of "
+          f"{prof['wall_s'] * 1e3:.3f} ms wall; card busy "
+          f"{100 * busy:.3f}%, idle {100 * (1 - busy):.3f}% ({card()})")
+    sweep = wire[:4 * INGEST_SWEEP_BLOCKS * BLOCK]
+    runs = []
+    for rate in INGEST_SWEEP:
+        r = ingest_run(ex, sweep, rate)
+        r["sent_rate"] = r["samples"] / r["send_s"]
+        r["lost"] = (r["rx"]["dropped"] + r["rx"]["overruns"]
+                     + r["pump"]["overruns"])
+        runs.append(r)
+        label = "unpaced" if rate is None else f"paced {rate / 1e6:.1f} Msamp/s"
+        print(f"ingest sweep {label}: sent at {r['sent_rate'] / 1e6:.2f} "
+              f"Msamp/s, {r['samples'] / r['wall_s'] / 1e6:.2f} Msamp/s "
+              f"wall-clock to the last audio, {len(r['audio'])} of "
+              f"{r['n_blocks']} blocks out, receiver dropped "
+              f"{r['rx']['dropped']} packets and overran {r['rx']['overruns']}"
+              f", pump overruns {r['pump']['overruns']} ({card()})")
+    clean = [r["sent_rate"] for r in runs if r["lost"] == 0]
+    fastest = max(runs, key=lambda r: r["sent_rate"])
+    print(f"ingest sweep: highest send rate that arrived with no drop "
+          + (f"{max(clean) / 1e6:.2f} Msamp/s" if clean else "none")
+          + f"; at the fastest send ({fastest['sent_rate'] / 1e6:.2f} "
+          f"Msamp/s) {fastest['rx']['dropped']} packets dropped, "
+          f"{fastest['rx']['overruns']} ring overruns, "
+          f"{fastest['pump']['overruns']} pump overruns ({card()})")
+    return launches
+
+
+# -- the apps ---------------------------------------------------------------
+
+APP_LSB = 3          # WAV samples: 1e-4 of full scale
+APP_DB_LSB = 0.01    # the apps' CSVs print dB as %.2f
+
+
+def read_wav(path):
+    """(rate, int16 samples) of a WAV written by ``rtl_fm.write_wav``."""
+    data = open(path, "rb").read()
+    check(data[:4] == b"RIFF" and data[8:12] == b"WAVE", f"{path}: a WAV")
+    return struct.unpack("<I", data[24:28])[0], \
+        np.frombuffer(data[44:], np.int16)
+
+
+def read_png(path):
+    """The [h, w, 3] raster of a PNG written by ``viz.export.write_image``
+    (one zlib stream of filter-0 rows)."""
+    data = open(path, "rb").read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: a PNG")
+    w, h = struct.unpack(">II", data[16:24])
+    n = struct.unpack(">I", data[33:37])[0]
+    rows = np.frombuffer(zlib.decompress(data[41:41 + n]), np.uint8)
+    return rows.reshape(h, 1 + 3 * w)[:, 1:].reshape(h, w, 3)
+
+
+def same_wav(a, b, upto=None):
+    """Two WAVs of one rate and length, within APP_LSB (over the first
+    ``upto`` samples, where given); the samples of ``a``."""
+    ra, pa = read_wav(a)
+    rb, pb = read_wav(b)
+    check(ra == rb and len(pa) == len(pb) > 0, f"{a}: rate and length")
+    err = int(np.abs(pa[:upto].astype(np.int32) - pb[:upto]).max())
+    check(err <= APP_LSB, f"{a}: {err} LSB from {b}")
+    return pa
+
+
+def same_db_csv(a, b):
+    """dB spectra CSVs (a frame a row): each value within one printed LSB
+    or, in linear power, within 1e-4 of its frame's peak (a stopband bin
+    far down differs by more than an LSB in dB between two float32
+    orders of its sum, by nothing at the frame's scale); the values of
+    ``a``."""
+    va = np.loadtxt(a, delimiter=",", ndmin=2)
+    vb = np.loadtxt(b, delimiter=",", ndmin=2)
+    check(va.shape == vb.shape and va.size > 0, f"{a}: shape")
+    pa, pb = 10.0 ** (va / 10.0), 10.0 ** (vb / 10.0)
+    near = np.abs(pa - pb) <= 1e-4 * pb.max(axis=1, keepdims=True)
+    check(bool((near | (np.abs(va - vb) <= APP_DB_LSB + 1e-9)).all()),
+          f"{a}: values differ from {b}")
+    return va
+
+
+def same_png(a, b):
+    """Two rasters of the thermal gradient within one level of it."""
+    level = {tuple(c): i for i, c in enumerate(thermal_gradient())}
+    ia, ib = read_png(a), read_png(b)
+    check(ia.shape == ib.shape, f"{a}: raster shape")
+    la = np.array([level[tuple(p)] for p in ia.reshape(-1, 3)])
+    lb = np.array([level[tuple(p)] for p in ib.reshape(-1, 3)])
+    check(int(np.abs(la - lb).max()) <= 1, f"{a}: levels differ from {b}")
+
+
+def fill(argv, files):
+    """``argv`` with each ``{name}`` replaced by its output path."""
+    out = []
+    for a in argv:
+        for n, p in files.items():
+            a = a.replace("{" + n + "}", p)
+        out.append(a)
+    return out
+
+
+@contextlib.contextmanager
+def step_events():
+    """A pair of CUDA events around every StreamExecutor.dispatch made
+    inside: each step's span on the card."""
+    spans, orig = [], StreamExecutor.dispatch
+
+    def dispatch(self, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = orig(self, *args, **kw)
+        end.record()
+        spans.append((start, end))
+        return outs
+
+    StreamExecutor.dispatch = dispatch
+    try:
+        yield spans
+    finally:
+        StreamExecutor.dispatch = orig
+
+
+def app_pair(name, main, argv, tmp, outs=(), kernels=(), n_blocks=0):
+    """``main(argv)`` with ``--device cuda`` (its launches counted: each of
+    ``kernels`` once a block of ``n_blocks``) and then ``--device cpu``,
+    each writing its ``outs`` under ``tmp``; prints the card run's wall
+    time and step time. Returns each run's stdout (paths masked) and
+    output paths."""
+    res = {}
+    for devname in ("cuda", "cpu"):
+        files = {o: os.path.join(tmp, f"{devname}_{o}") for o in outs}
+        args = fill(argv, files) + ["--device", devname]
+        buf = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(buf):
+                check(main(args) == 0, f"app {name} --device {devname}")
+
+        t0 = time.perf_counter()
+        if devname == "cuda":
+            with step_events() as spans:
+                counted(f"app {name}", kernels, n_blocks, run)
+            torch.cuda.synchronize()
+            steps = [s.elapsed_time(e) for s, e in spans]
+        else:
+            run()
+        wall = time.perf_counter() - t0
+        out = buf.getvalue()
+        for n, p in files.items():
+            out = out.replace(p, n)
+        res[devname] = (out, files, wall)
+        if devname == "cuda":
+            step = (f"{len(steps)} steps, step median "
+                    f"{statistics.median(steps):.4f} ms, max "
+                    f"{max(steps):.4f} ms (events)") if steps else \
+                "no graph stepped"
+            print(f"app {name}: card {wall:.4f} s wall, {step} ({card()})")
+        else:
+            print(f"app {name}: cpu {wall:.4f} s wall")
+    return res["cuda"], res["cpu"]
+
+
+class RecordingRemote(borip_client.RemoteDevice):
+    """The port's RemoteDevice, keeping each instance and its receiver's
+    stats at close (the apps phase reads its drops)."""
+
+    made = []
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        RecordingRemote.made.append(self)
+
+    def close(self):
+        if getattr(self, "final_stats", None) is None:
+            self.final_stats = self.rx.stats()
+        super().close()
+
+
+def wav_tone(path, skip=8):
+    """(tone Hz, SINAD dB) of a WAV's audio after its first 1/``skip``."""
+    rate, pcm = read_wav(path)
+    audio = pcm[len(pcm) // skip:].astype(np.float64) / 32767.0
+    return tone_sinad(audio, rate)
+
+
+def apps_phase(dev):
+    """Each ported app through its ``main(argv)`` on the card and again
+    with ``--device cpu`` on the same argv, outputs in a temporary
+    directory: rtl_fm (--synth, --borip against the port's BorIPServer
+    serving a FileDevice paced at the RTL rate, --input), am_fft,
+    realtime_fft, fac, scanner and papr at their defaults. Returns the
+    kernels' launches."""
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    rtl_blocks = -(-int(APP_SECONDS * FS) // (1 << 17))
+    with tempfile.TemporaryDirectory() as tmp:
+        def pair(name, main, argv, outs=(), kernels=(), n_blocks=0):
+            reset_launches()
+            got = app_pair(name, main, argv, tmp, outs, kernels, n_blocks)
+            return got
+
+        # rtl_fm --synth at its defaults for APP_SECONDS
+        card_run, cpu_run = pair(
+            "rtl_fm --synth", rtl_fm.main,
+            ["--synth", "--seconds", str(APP_SECONDS), "-o", "{a.wav}"],
+            ["a.wav"], ("xlating_fir_block",), rtl_blocks)
+        add(launch_counts())
+        check(card_run[0] == cpu_run[0], "rtl_fm --synth stdout")
+        same_wav(card_run[1]["a.wav"], cpu_run[1]["a.wav"])
+        synth_f, sinad = wav_tone(card_run[1]["a.wav"])
+        print(f"app rtl_fm --synth tone: {synth_f:.2f} Hz, SINAD "
+              f"{sinad:.2f} dB")
+        check(abs(synth_f - TONE_HZ) < 5.0 and sinad > 40.0,
+              "rtl_fm --synth tone")
+
+        # a capture of the FM station, quantized to the wire, served
+        # over BorIP by a FileDevice at the RTL rate
+        cap = os.path.join(tmp, "station.c64")
+        x = synth_fm(int(APP_SECONDS * FS), dev, seed=7).cpu().numpy()
+        udp.ishort_bytes_to_complex(udp.complex_to_ishort_bytes(x)).tofile(
+            cap)
+        srv = BorIPServer(("127.0.0.1", 0),
+                          default_device=f"file {cap} rate={int(FS)} "
+                          "realtime=1")
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        orig_remote = borip_client.RemoteDevice
+        borip_client.RemoteDevice = RecordingRemote
+        RecordingRemote.made = []
+        try:
+            card_run, cpu_run = pair(
+                "rtl_fm --borip", rtl_fm.main,
+                ["--borip", f"127.0.0.1:{srv.port}", "--freq",
+                 str(STATION_HZ), "--seconds", str(APP_SECONDS), "-o",
+                 "{a.wav}"], ["a.wav"], ("xlating_fir_block",), rtl_blocks)
+            add(launch_counts())
+        finally:
+            borip_client.RemoteDevice = orig_remote
+            srv.shutdown()
+            srv.server_close()
+        stats = [d.final_stats for d in RecordingRemote.made]
+        print(f"app rtl_fm --borip: the clients' receiver stats {stats}")
+        check(len(stats) == 2 and all(s["dropped"] == 0 and s["overruns"] == 0
+                                      for s in stats),
+              "rtl_fm --borip: the client dropped samples")
+        check(card_run[0] == cpu_run[0], "rtl_fm --borip stdout")
+        same_wav(card_run[1]["a.wav"], cpu_run[1]["a.wav"])
+        f, sinad = wav_tone(card_run[1]["a.wav"])
+        print(f"app rtl_fm --borip tone: {f:.2f} Hz, SINAD {sinad:.2f} dB")
+        check(abs(f - TONE_HZ) < 5.0 and sinad > 40.0, "rtl_fm --borip tone")
+
+        # rtl_fm --input on the same capture
+        card_run, cpu_run = pair(
+            "rtl_fm --input", rtl_fm.main,
+            ["--input", cap, "--fmt", "c64", "--freq", str(STATION_HZ),
+             "-o", "{a.wav}"], ["a.wav"], ("xlating_fir_block",), rtl_blocks)
+        add(launch_counts())
+        check(card_run[0] == cpu_run[0], "rtl_fm --input stdout")
+        # the file source zero-fills its last read past the capture's end:
+        # an FM discriminator turns the filters' last rounding bits there
+        # into full-scale noise, which no two float orders share, so the
+        # WAVs are held over the capture's audio (as the bank holds only
+        # the slots that carry a station)
+        same_wav(card_run[1]["a.wav"], cpu_run[1]["a.wav"],
+                 upto=int(APP_SECONDS * 48e3) - 64)
+        f, sinad = wav_tone(card_run[1]["a.wav"])
+        print(f"app rtl_fm --input tone: {f:.2f} Hz (--synth {synth_f:.2f}),"
+              f" SINAD {sinad:.2f} dB")
+        check(abs(f - synth_f) < 5.0 and sinad > 40.0, "rtl_fm --input tone")
+
+        # am_fft at its defaults: B1 at decim 16
+        card_run, cpu_run = pair(
+            "am_fft", am_fft.main, ["-o", "{am.wav}", "--csv", "{am.csv}"],
+            ["am.wav", "am.csv"], ("xlating_fir_block",), 8)
+        add(launch_counts())
+        check(card_run[0] == cpu_run[0], "am_fft stdout")
+        same_wav(card_run[1]["am.wav"], cpu_run[1]["am.wav"])
+        spectra = same_db_csv(card_run[1]["am.csv"], cpu_run[1]["am.csv"])
+        f, sinad = wav_tone(card_run[1]["am.wav"], skip=2)
+        carrier = int(np.argmax(spectra[-1]))
+        print(f"app am_fft tone: {f:.2f} Hz, SINAD {sinad:.2f} dB; carrier "
+              f"in bin {carrier} of {spectra.shape[1]}")
+        check(abs(f - TONE_HZ) < 5.0, "am_fft tone")
+        check(carrier == spectra.shape[1] // 2, "am_fft carrier bin")
+
+        # realtime_fft --synth and fac, CSV and images
+        card_run, cpu_run = pair(
+            "realtime_fft --synth", realtime_fft.main,
+            ["--synth", "--csv", "{s.csv}", "--waterfall", "{w.png}"],
+            ["s.csv", "w.png"])
+        check(card_run[0] == cpu_run[0], "realtime_fft stdout")
+        check(same_db_csv(card_run[1]["s.csv"], cpu_run[1]["s.csv"]).shape
+              == (32, 4096), "realtime_fft spectra")
+        same_png(card_run[1]["w.png"], cpu_run[1]["w.png"])
+        card_run, cpu_run = pair("fac", fac.main,
+                                 ["--csv", "{f.csv}", "--png", "{f.png}"],
+                                 ["f.csv", "f.png"])
+        same_db_csv(card_run[1]["f.csv"], cpu_run[1]["f.csv"])
+        same_png(card_run[1]["f.png"], cpu_run[1]["f.png"])
+        bins = [int(o.split("strongest correlation at bin")[1].split()[0])
+                for o in (card_run[0], cpu_run[0])]
+        # the FAC is symmetric: bins k and 512 - k tie
+        check(len({min(b, 512 - b) for b in bins}) == 1
+              and min(bins[0], 512 - bins[0]) % 50 == 0, f"fac bins {bins}")
+
+        # scanner at its defaults: the bank kernel, 8 blocks
+        card_run, cpu_run = pair("scanner", scanner.main, [],
+                                 kernels=("channel_bank",), n_blocks=8)
+        add(launch_counts())
+        print("app scanner:", " ".join(card_run[0].split()))
+        check(card_run[0] == cpu_run[0], "scanner hits differ from the CPU")
+        check("-300.0 kHz : 8/8" in card_run[0]
+              and "+100.0 kHz : 8/8" in card_run[0], "scanner stations")
+
+        # papr at its defaults
+        card_run, cpu_run = pair("papr", papr.main, ["--csv", "{c.csv}"],
+                                 ["c.csv"])
+        a, b = (json.loads(r[0].strip().splitlines()[-1])
+                for r in (card_run, cpu_run))
+        print(f"app papr: card {a}, cpu {b}")
+        check(a.keys() == b.keys() and all(
+            abs(a[k] - b[k]) <= 1e-4 * abs(b[k]) for k in a),
+            "papr differs from the CPU run")
+        ca = np.loadtxt(card_run[1]["c.csv"], delimiter=",", skiprows=1)
+        cb = np.loadtxt(cpu_run[1]["c.csv"], delimiter=",", skiprows=1)
+        check(ca.shape == cb.shape and float(np.abs(ca - cb).max()) <= 1e-5,
+              "papr CCDF differs from the CPU run")
+    return launches
+
+
 def profile_chain(run, step_ms: float, label: str, kernels=()):
     """Kernel time per step and by name, from torch.profiler over 5
     steps. The busy share is that kernel time over ``step_ms``, the
@@ -4031,6 +4663,11 @@ def main() -> int:
     fmcw_path(dev)
     launches["fir_decimate_frame"] += parallel_path(dev)[
         "fir_decimate_frame"]
+    ingest = ingest_path(dev)
+    for name in MAIN_PATH_KERNELS:
+        launches[name] += ingest[name]
+    for name, n in apps_phase(dev).items():
+        launches[name] += n
 
     table = []
     for r in rows:

@@ -12,9 +12,12 @@
   work on earlier ones, and hands each named output ``(data, count)``
   to its sink.
 
-A source returning ``None`` means "no data yet": with ``zero_fill=True``
-the pump feeds a zero block (underrun counter + 1) so sinks never stall,
-the non_blocker semantic; otherwise the feeder retries. :meth:`stop`
+A source returns a dict of input blocks, or a ``(blocks, counts)`` pair
+for a partial block (``counts`` as :meth:`StreamExecutor.dispatch` takes
+them: the last block of a stream that ends mid-block). A source
+returning ``None`` means "no data yet": with ``zero_fill=True`` the pump
+feeds a zero block (underrun counter + 1) so sinks never stall, the
+non_blocker semantic; otherwise the feeder retries. :meth:`stop`
 drains the dispatched steps, and re-raises an error of the runner.
 """
 
@@ -135,6 +138,11 @@ class StreamPump:
         with self._lock:
             self.blocks_out += 1
 
+    def _dispatch(self, blk):
+        if isinstance(blk, tuple):  # (blocks, counts): a partial block
+            return self.ex.dispatch(*blk)
+        return self.ex.dispatch(blk)
+
     def _run_loop(self):
         pend = collections.deque()
         try:
@@ -144,7 +152,7 @@ class StreamPump:
                         blk = self._q.get_nowait()
                     except queue.Empty:
                         break
-                    pend.append(self.ex.dispatch(blk))
+                    pend.append(self._dispatch(blk))
                 if pend:
                     self._deliver(pend.popleft())
                 else:
@@ -152,7 +160,7 @@ class StreamPump:
                         blk = self._q.get(timeout=self.poll)
                     except queue.Empty:
                         continue
-                    pend.append(self.ex.dispatch(blk))
+                    pend.append(self._dispatch(blk))
             while pend:  # drain in-flight work on stop
                 self._deliver(pend.popleft())
         except BaseException as e:  # handed to stop(), which re-raises it

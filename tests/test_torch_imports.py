@@ -42,8 +42,8 @@ def test_importing_every_module_loads_no_jax():
 
 # the modules of BASELINE configs 1, 3, 4 and 5, of the burst path, of
 # the simple and per-sample blocks with their two kernels, and of the
-# decoders and FEC with their four, of the P25 and FMCW chains, and the
-# multi-device patterns
+# decoders and FEC with their four, of the P25 and FMCW chains, the
+# multi-device patterns, and the ingest entry points and receive apps
 NEW_MODULES = {f"grbaz_tpu_torch.{m}" for m in (
     "ops.agc", "ops.spectral", "ops.colour", "ops.segments", "ops.detect",
     "ops.doa", "models.spectral", "parallel.channel_bank", "ops.burst",
@@ -54,7 +54,11 @@ NEW_MODULES = {f"grbaz_tpu_torch.{m}" for m in (
     "ops.cuda.dpll_walk", "utils.des", "ops.p25_fec", "ops.p25_ldu",
     "ops.p25", "ops.fsk4", "models.p25", "models.p25_voice",
     "viz.traffic", "models.fmcw", "parallel._collectives", "parallel.doa",
-    "parallel.tp", "parallel.wbfm_bank", "parallel.pipeline")}
+    "parallel.tp", "parallel.wbfm_bank", "parallel.pipeline",
+    "core.config", "native", "net.udp", "net.devices", "net.borip_server",
+    "net.borip_client", "io.file_source", "viz.export", "viz.sinks",
+    "apps.rtl_fm", "apps.realtime_fft", "apps.fac", "apps.am_fft",
+    "apps.scanner", "apps.papr")}
 
 
 @pytest.mark.parametrize("path", _port_sources(),
