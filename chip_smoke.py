@@ -20,6 +20,17 @@ failure of which exits non-zero:
    just after; the same run on the plain backend must agree, and the
    1 kHz test tone must come back (frequency and SINAD);
 4. the host-fed StreamExecutor with a retune and a partial last block;
+   then (``count0_phase``) the cascade and fractional chains on the card
+   against the port on the CPU over counts [n, 0, n, n - 1000, 0, n]
+   (n = 2^20, abs index from 2^32 - 2^19), over three blocks of noise
+   80 dB below the station and over three all-zero blocks, each between
+   signal blocks: every count, limb, LO phase and resampler q and mu
+   equal, outputs within 1e-4 of the max and float tails within 1e-5 of
+   theirs after every block; in the all-zero blocks (and the first
+   block after them) ``quad`` may differ only where the discriminator's
+   input is exactly zero, where ``atan2`` reads the signs of the zeros
+   (B1 on the card leaves a sign bit on half its zero outputs, the CPU's
+   plain version none), and the audio and float tails follow it;
 5. the fused path: ``WBFMConfig(fused=True)`` (WBFMFrontend on the
    rotated-taps kernel B2) over the same 8 blocks, without and with a
    squelch, counted like phase 3; against its plain backend, the tone,
@@ -152,7 +163,26 @@ failure of which exits non-zero:
     outputs agree with the CPU's (WAVs within 3 LSB, dB CSVs within a
     printed LSB or 1e-4 of the frame's peak, images within a gradient
     level, stdout equal), the tones, carrier and stations found; each
-    app's wall time and step time (CUDA events around each dispatch).
+    app's wall time and step time (CUDA events around each dispatch);
+20. the RTL-FM equivalent fed by the RTL2832 driver (``rtl_path``): the
+    station quantized to u8 offset-binary IQ (the dongle's wire) in a
+    capture of 6.5 blocks of 2^20, (a) read by the port's ``RTLSource``
+    (file transport, R820T tuned to 100.1 MHz, 3.2 Msamp/s; its native
+    driver built from ``native/rtlsdr_core.cc`` and asserted) through a
+    ``BlockSource`` (every read kept, the last block partial) and
+    ``StreamPump(drop=True, inflight=3)`` into the cascade chain (B1,
+    B3): no driver overflow, no pump overrun, the reads equal to the
+    capture, the audio bit-equal to the Flowgraph over it, blocks 0-1
+    against the CPU, the tone within 5 Hz above 40 dB; the wall-clock
+    rate, each block's latency (its last read to its audio) and the
+    card's idle share (a profiled rerun); (b) ``rtl_fm --borip`` against
+    the port's BorIPServer opening the driver by its hint (``rtl
+    transport=file ...``), ``--block`` a whole number of packets, card
+    against ``--device cpu`` (WAVs within 3 LSB, the tone); (c) the same
+    samples as c64 from the port's ``NativeTCPFrameSink`` to its
+    ``NativeTCPFrameSource`` over loopback, a tag at each block's offset,
+    through the pump and chain: the audio bit-equal, every tag at its
+    offset, the stream end seen.
 
 The FSM kernel's cases run at the burst path's [1, 2^20] (its row) and
 at the decoder-bank shape [64, 2^14], the latter also with a smoothed
@@ -188,12 +218,13 @@ lookup a chunk; K6's samples times a fadd plus its pulses times a pulse
 step).
 
 B1's row counts the launches of the cascade chain, the P25 path, the
-ingest path and the apps (rtl_fm's three runs, am_fft); the bank's those
-of config 5 and the scanner app;
+ingest path, the apps (rtl_fm's three runs, am_fft) and the RTL path
+(its three runs); the bank's those of config 5 and the scanner app;
 its cases also run at the AM shape (decim 16) and the P25 shape (decim
 32, 768 taps, 2^14 outputs). B3's row counts the launches of both its
 entry points, over the cascade chain, the parallel path (the bank's
-64, the TP FIR's 8 and the pipeline's 8) and the ingest path, and times
+64, the TP FIR's 8 and the pipeline's 8), the ingest path and the RTL
+path's (a) and (c), and times
 the block entry
 point, which the cascade chain's
 ``FIRDecimator`` launches; the frame entry point is timed on the
@@ -1197,6 +1228,192 @@ def executor_phase(dev, iq, cfg, kern):
     print(f"executor: 4 host-fed blocks, retune off ({off:.3f} away) and "
           f"back ({back:.2e}), partial block quad {c} audio {ac}, "
           f"{ex.throughput() / 1e6:.2f} Msamp/s host-observed")
+
+
+COUNT0_ZEROS = 3          # all-zero blocks in the zero-input run
+COUNT0_START = 2 ** 32 - 2 ** 19   # abs index of block 0: the limb carry
+COUNT0_OUT_REL = 1e-4     # outputs: the chain's bar, of the max
+COUNT0_STATE_REL = 1e-5   # float tails: of their max
+
+
+def count0_counts(n: int):
+    """The count-0 check's counts: full, empty, full, short, empty, full."""
+    return [n, 0, n, n - 1000, 0, n]
+
+
+def count0_runs(sig):
+    """The count-0 check's runs over six signal blocks ``sig``: (blocks,
+    counts) by label. "counts": ``count0_counts``; "near-zero": a signal
+    block, COUNT0_ZEROS blocks of noise 80 dB below the station, two
+    signal blocks; "zeros": the same with all-zero blocks."""
+    n = len(sig[0])
+    rng = np.random.default_rng(16)
+    tiny = [(1e-4 * (rng.standard_normal(n) + 1j * rng.standard_normal(n)))
+            .astype(np.complex64) for _ in range(COUNT0_ZEROS)]
+    zero = np.zeros(n, np.complex64)
+    around = [n] * (COUNT0_ZEROS + 3)
+    return {"counts": (list(sig), count0_counts(n)),
+            "near-zero": ([sig[0]] + tiny + list(sig[1:3]), around),
+            "zeros": ([sig[0]] + [zero] * COUNT0_ZEROS + list(sig[1:3]),
+                      around)}
+
+
+def state_leaves(tree, prefix=""):
+    """``(path, tensor)`` of every leaf of a state tree, on the host."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in state_leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree.detach().cpu())]
+
+
+def chain_steps(cfg, device, blocks, counts, start=COUNT0_START):
+    """``build_wbfm(cfg)`` on ``device`` over ``blocks`` (host complex64
+    arrays) with ``counts``, the stream's abs index from ``start`` and
+    advanced by each count: per block, its outputs (the valid part, the
+    count and the meta's limbs) and the carried state's leaves, on the
+    host."""
+    fg, _ = build_wbfm(cfg, device=device)
+    step = fg.compile().step
+    states, params = fg.init_states(), fg.init_params()
+    meta = StreamMeta.start(cfg.sample_rate, abs_index=start, device=device)
+    steps = []
+    for x, c in zip(blocks, counts):
+        s = Stream(torch.from_numpy(x).to(device),
+                   torch.full((), c, dtype=torch.int32, device=device), meta)
+        states, o = step(states, params, {"iq": s})
+        outs = {k: (v.data[:int(v.count)].cpu(), int(v.count),
+                    (int(v.meta.abs_lo), int(v.meta.abs_hi)))
+                for k, v in o.items()}
+        steps.append((outs, state_leaves(states)))
+        meta = meta.advanced(c)
+    return steps
+
+
+def chain_differences(card, cpu, loose=(), exact_zero=None):
+    """Every difference between two :func:`chain_steps` runs beyond the
+    bars: counts and limbs unequal, outputs beyond COUNT0_OUT_REL of the
+    CPU block's max, integer state unequal, float state beyond
+    COUNT0_STATE_REL of its max. In the blocks of ``loose`` only counts,
+    limbs and integer state are held, and ``quad`` outputs beyond the bar
+    only where ``exact_zero[block]`` (a bool tensor over the block's
+    valid outputs) is true, that is where the discriminator's input is
+    exactly zero: the float results there follow a phase that input does
+    not define. Returns (lines, per-block worst relative errors)."""
+    bad, worst = [], []
+    for b, ((co, cs), (po, ps)) in enumerate(zip(card, cpu)):
+        w = {}
+        for port in sorted(po):
+            (a, ca, la), (r, cr, lr) = co[port], po[port]
+            if ca != cr or la != lr:
+                bad.append(f"block {b} {port}: count {ca} / {cr}, "
+                           f"limbs {la} / {lr}")
+                continue
+            scale = float(r.abs().max()) if cr else 0.0
+            diff = (a - r).abs()
+            err = float(diff.max()) if cr else 0.0
+            w[port] = err / scale if scale else err
+            if err <= COUNT0_OUT_REL * scale:
+                continue
+            beyond = diff > COUNT0_OUT_REL * scale
+            if b in loose:
+                if port != "quad":
+                    continue
+                beyond &= ~exact_zero[b]
+                if not bool(beyond.any()):
+                    continue
+            idx = torch.nonzero(beyond).flatten()
+            bad.append(f"block {b} {port}: {len(idx)} of {cr} outputs beyond "
+                       f"the bar (max err {err:.3e}, scale {scale:.3e}), "
+                       f"first at {idx[:8].tolist()}: card "
+                       f"{a[idx[:4]].tolist()} cpu {r[idx[:4]].tolist()}")
+        for (name, a), (_, r) in zip(cs, ps):
+            if a.is_floating_point() or a.is_complex():
+                scale = float(r.abs().max())
+                err = float((a - r).abs().max())
+                w[name] = err / scale if scale else err
+                if err > COUNT0_STATE_REL * scale and b not in loose:
+                    bad.append(f"block {b} state {name}: max err {err:.3e}"
+                               f" of scale {scale:.3e}")
+            elif not torch.equal(a, r):
+                bad.append(f"block {b} state {name}: {a.tolist()} / "
+                           f"{r.tolist()}")
+        worst.append(w)
+    return bad, worst
+
+
+def demod_zero_inputs(cfg, device, blocks, counts):
+    """Per block, over its valid outputs: where the discriminator's
+    input product ``x[i] * conj(x[i - 1])`` is exactly zero (``x`` the
+    channel block's output on ``device``, carried across blocks), and
+    how many of those channel outputs are zeros with a sign bit set."""
+    fg, _ = build_wbfm(cfg, device=device)
+    chan = next(b for b in fg.blocks if b.name == "channel")
+    st, pr = chan.init_state(), chan.init_params()
+    meta = StreamMeta.start(cfg.sample_rate, abs_index=COUNT0_START,
+                            device=device)
+    prev = torch.zeros((), dtype=torch.complex64)
+    zero, neg = [], []
+    for x, c in zip(blocks, counts):
+        s = Stream(torch.from_numpy(x).to(device),
+                   torch.full((), c, dtype=torch.int32, device=device), meta)
+        st, (y,) = chan.apply(st, pr, s)
+        y = y.data[:int(y.count)].cpu()
+        z = y == 0
+        zp = torch.cat([(prev == 0).reshape(1), z[:-1]])
+        zero.append(z | zp)
+        neg.append(int((z & (torch.signbit(y.real)
+                             | torch.signbit(y.imag))).sum()))
+        if len(y):
+            prev = y[-1]
+        meta = meta.advanced(c)
+    return zero, neg
+
+
+def count0_phase(dev, iq):
+    """A count-0 block and all-zero input, card against CPU: the cascade
+    and fractional chains over counts ``count0_counts(BLOCK)`` of the
+    station ``iq``; over a signal block, COUNT0_ZEROS blocks of noise 80
+    dB below it and two signal blocks; and over the same with all-zero
+    blocks. Every count and limb, the LO phase and the resampler's q and
+    mu equal after every block. Every output up to its count within the
+    chain's bar (COUNT0_OUT_REL of the max) and the float tails within
+    COUNT0_STATE_REL of their max, after every block, but in the
+    all-zero run's zero blocks and the signal block after them: there
+    ``quad`` may differ only where the discriminator's input is exactly
+    zero on both sides (``atan2`` of a zero product reads the signs of
+    its zeros, which the two float orders set apart), and the audio and
+    float tails follow ``quad``; the last block is held again in full."""
+    t0 = time.perf_counter()
+    host = iq[:6 * BLOCK].cpu().numpy()
+    runs = count0_runs([host[b * BLOCK:(b + 1) * BLOCK] for b in range(6)])
+    cpu = torch.device("cpu")
+    bad = []
+    for chain in ("cascade", "fractional"):
+        cfg = WBFMConfig(block_size=BLOCK, audio_chain=chain,
+                         center_freq=STATION_HZ)
+        for label, (blocks, counts) in runs.items():
+            card_run = chain_steps(cfg, dev, blocks, counts)
+            cpu_run = chain_steps(cfg, cpu, blocks, counts)
+            loose, exact_zero = (), None
+            if label == "zeros":
+                loose = tuple(range(1, COUNT0_ZEROS + 2))
+                zc, nc = demod_zero_inputs(cfg, dev, blocks, counts)
+                zp, npu = demod_zero_inputs(cfg, cpu, blocks, counts)
+                exact_zero = [a & b for a, b in zip(zc, zp)]
+                print(f"count-0 {chain} zeros: discriminator inputs exactly "
+                      f"zero per block {[int(z.sum()) for z in exact_zero]};"
+                      f" channel zeros with a sign bit, card {nc}, cpu {npu}")
+            lines, worst = chain_differences(card_run, cpu_run, loose,
+                                             exact_zero)
+            print(f"count-0 {chain} {label} (counts {counts}): worst "
+                  "relative error per block "
+                  + "; ".join(", ".join(f"{k} {v:.2e}" for k, v in w.items()
+                                        if v) or "none" for w in worst))
+            for line in lines:
+                print(f"count-0 {chain} {label} DIFFERS: {line}")
+            bad += lines
+    check(not bad, f"count-0 check: {len(bad)} differences card vs CPU")
+    print(f"count-0 check held in {time.perf_counter() - t0:.1f} s")
 
 
 def gate_flips(got, ref, rel, limit=8):
@@ -4039,15 +4256,7 @@ def run_counted(fg, blocks, counts, rate):
 def wire_blocks(wire: bytes, block: int, device):
     """The samples on the wire as the chain's blocks (the last padded
     with zeros) and their counts."""
-    x = udp.ishort_bytes_to_complex(wire)
-    blocks, counts = [], []
-    for b in range(0, len(x), block):
-        part = x[b:b + block]
-        counts.append(len(part))
-        pad = np.zeros(block, np.complex64)
-        pad[:len(part)] = part
-        blocks.append(torch.from_numpy(pad).to(device))
-    return blocks, counts
+    return sample_blocks(udp.ishort_bytes_to_complex(wire), block, device)
 
 
 def ingest_executor(cfg, device):
@@ -4521,6 +4730,409 @@ def apps_phase(dev):
     return launches
 
 
+# -- the RTL path: the RTL-FM equivalent fed by the RTL2832 driver ---------
+
+RTL_FULL_BLOCKS = 6       # of the capture, then half a block
+RTL_TUNER = "r820t"
+RTL_TUNE_HZ = 100.1e6     # the dongle's LO: the station sits at +STATION_HZ
+RTL_AMPLITUDE = 0.9       # of the station, before it is quantized to u8
+RTL_SEED = 11
+# rtl_fm --borip's input: the file transport runs ahead of the programmed
+# rate (rtlsdr_core.cc's capture loop sleeps a quarter of each packet's
+# time), and both the server's driver ring (2^21 samples) and the
+# client's UDP ring (8192 packets) drop their oldest data when full, so
+# what each run reads stays far inside both rings
+RTL_APP_SECONDS = 0.25
+RTL_APP_BLOCK = 356 * 368  # rtl_fm --block: whole 368-sample packets
+TCP_RING_BLOCKS = 4       # the TCP source's ring, in blocks of c64
+RTL_WAIT_S = 30.0         # deadline of a run
+
+
+def u8_iq(x: np.ndarray) -> np.ndarray:
+    """complex64 -> the dongle's wire format, offset-binary u8 I, Q."""
+    u = np.empty(2 * len(x), np.uint8)
+    u[0::2] = np.clip(np.round(x.real * 127.5 + 127.5), 0, 255)
+    u[1::2] = np.clip(np.round(x.imag * 127.5 + 127.5), 0, 255)
+    return u
+
+
+def u8_samples(u: np.ndarray) -> np.ndarray:
+    """u8 IQ bytes as ``RTLSource.read_samples`` converts them."""
+    f = (u.astype(np.float32) - 127.5) / 127.5
+    return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
+
+
+def rtl_capture(path, n: int, device, seed: int = RTL_SEED) -> np.ndarray:
+    """The main path's station (``synth_fm``, scaled by RTL_AMPLITUDE)
+    quantized to u8 IQ and written to ``path``: ``n`` samples. Returns
+    the bytes."""
+    x = synth_fm(n, device, seed=seed).cpu().numpy() * RTL_AMPLITUDE
+    u = u8_iq(x)
+    u.tofile(path)
+    return u
+
+
+def sample_blocks(x: np.ndarray, block: int, device):
+    """``x`` as the chain's blocks (the last padded with zeros) and their
+    counts."""
+    blocks, counts = [], []
+    for b in range(0, len(x), block):
+        part = x[b:b + block]
+        counts.append(len(part))
+        pad = np.zeros(block, np.complex64)
+        pad[:len(part)] = part
+        blocks.append(torch.from_numpy(pad).to(device))
+    return blocks, counts
+
+
+class BlockSource:
+    """A StreamPump source over a reader that hands out what has arrived
+    (``read(n) -> samples``, at most ``n``): it keeps every read until it
+    holds a whole block, and once ``total`` samples are read (the RTL
+    file transport loops at its end) or the reader's stream ``ended()``
+    and a read comes back empty, hands the rest on as a partial block
+    with its count; ``at_total()`` is called once the ``total``-th
+    sample is read. Keeps each block's input and the time of its last
+    read."""
+
+    def __init__(self, read, block: int, total=None, ended=None,
+                 at_total=None, port: str = "iq"):
+        self.read, self.block, self.total = read, int(block), total
+        self.ended_fn, self.at_total, self.port = ended, at_total, port
+        self.parts, self.have, self.taken = [], 0, 0
+        self.ended = self.drained = False
+        self.inputs, self.last_read = [], []
+        self.full_blocks = self.partial = 0
+
+    def __call__(self):
+        want = self.block - self.have
+        if self.total is not None:
+            want = min(want, self.total - self.taken)
+        x = self.read(want) if want > 0 else np.zeros(0, np.complex64)
+        if len(x):
+            self.parts.append(x)
+            self.have += len(x)
+            self.taken += len(x)
+            if self.taken == self.total and self.at_total is not None:
+                self.at_total()
+        if self.ended_fn is not None:
+            # an end flag may come before the data in front of it is
+            # read: the end is drained only by a read that comes back empty
+            self.drained = self.ended and len(x) == 0
+            self.ended |= bool(self.ended_fn())
+        else:
+            self.drained = self.taken == self.total
+        if self.have == self.block or (self.drained and self.have):
+            data = np.concatenate(self.parts)
+            count, self.parts, self.have = len(data), [], 0
+            self.inputs.append(data)
+            self.last_read.append(time.perf_counter())
+            if count == self.block:
+                self.full_blocks += 1
+                return {self.port: data}
+            pad = np.zeros(self.block, np.complex64)
+            pad[:count] = data
+            self.partial += 1
+            return {self.port: pad}, {self.port: count}
+        return None
+
+    @property
+    def done(self) -> bool:
+        return self.drained and not self.have
+
+
+def pump_run(ex, src: BlockSource, n_blocks: int, begin, drop=True,
+             profile=False):
+    """``src`` through a StreamPump(drop=``drop``, inflight=3) into the
+    executor ``ex`` (reset first); ``begin()`` starts the stream and may
+    send it. Returns the audio blocks, the pump's counts, the wall time
+    from ``begin`` to the last audio delivered, each block's latency (its
+    last read to its audio delivered) and, with ``profile``, the
+    kernels' device time (torch.profiler)."""
+    ex.reset()
+    audio, delivered = [], []
+
+    def sink(d, c):
+        audio.append(np.array(d[:c]))
+        delivered.append(time.perf_counter())
+
+    pump = StreamPump(ex, src, {"audio": sink}, drop=drop,
+                      inflight=INGEST_INFLIGHT)
+    prof = None
+    pump.start()
+    try:
+        with contextlib.ExitStack() as stack:
+            if profile:
+                prof = stack.enter_context(torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]))
+            t0 = time.perf_counter()
+            begin()
+            deadline = time.perf_counter() + RTL_WAIT_S
+            while True:
+                # every block of the stream either came out or was dropped
+                st = pump.stats()
+                if st["blocks_out"] + st["overruns"] >= n_blocks:
+                    break
+                check(time.perf_counter() < deadline,
+                      f"the pump delivered {len(delivered)} of {n_blocks} "
+                      "blocks by its deadline")
+                time.sleep(0.0005)
+            if ex.device.type == "cuda":
+                torch.cuda.synchronize()
+    finally:
+        pump.stop()
+    busy_ms = None
+    if prof is not None:
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation) / 1e3
+    wall = (delivered[-1] if delivered else time.perf_counter()) - t0
+    return dict(audio=audio, pump=pump.stats(), n_blocks=n_blocks,
+                full_blocks=src.full_blocks, partial=src.partial,
+                inputs=src.inputs, wall_s=wall, busy_ms=busy_ms,
+                latency_s=[d - r for d, r in zip(delivered, src.last_read)],
+                samples=sum(len(x) for x in src.inputs))
+
+
+def rtl_run(ex, path: str, total: int, rate: float, drop=True,
+            profile=False):
+    """One run of the RTL path: the port's RTLSource over the u8 capture
+    at ``path`` (file transport, RTL_TUNER, programmed to ``rate``),
+    ``total`` samples of it through a BlockSource and :func:`pump_run`.
+    Adds the driver's stats, tuner, synthesized LO and programmed
+    rate."""
+    from grbaz_tpu_torch.io.rtl_source import RTLSource
+    block = ex.inputs["iq"].shape[0]
+    rtl = RTLSource(transport="file", path=path, tuner=RTL_TUNER, rate=rate)
+    try:
+        check(rtl._lib is not None, "the RTL driver library is not loaded")
+        check(rtl.freq(RTL_TUNE_HZ), f"tuning the {RTL_TUNER} to "
+              f"{RTL_TUNE_HZ / 1e6} MHz")
+        # the capture goes on past the file's end (it loops) until the
+        # driver stops: stop it at the last sample read, so its overflow
+        # count is that of the samples this run reads
+        src = BlockSource(rtl.read_samples, block, total=total,
+                          at_total=rtl.stop)
+        run = pump_run(ex, src, -(-total // block),
+                       lambda: check(rtl.start(), "RTLSource.start"),
+                       drop=drop, profile=profile)
+        run.update(rtl=rtl.stats(), tuner=rtl.tuner_name(),
+                   freq=rtl.freq(), lo=rtl.actual_lo(),
+                   rate=rtl.sample_rate(),
+                   name=rtl.name())
+    finally:
+        rtl.close()
+    return run
+
+
+def tcp_run(ex, x: np.ndarray, drop=True):
+    """The samples ``x`` (c64) from the port's NativeTCPFrameSink to its
+    NativeTCPFrameSource over loopback, a tag at each block's offset,
+    then the end of the stream; the source's BlockSource feeds
+    :func:`pump_run`. The sender keeps within the source's ring
+    (TCP_RING_BLOCKS blocks). Adds the tags read, the source's stats and
+    the offsets sent."""
+    from grbaz_tpu_torch.net.tcp import NativeTCPFrameSink, NativeTCPFrameSource
+    block = ex.inputs["iq"].shape[0]
+    ring = TCP_RING_BLOCKS * block * 8
+    src = NativeTCPFrameSource(port=0, dtype=np.complex64, ring_bytes=ring)
+    sink = NativeTCPFrameSink("127.0.0.1", src.port)
+    tags = []
+
+    def read(n):
+        got, t = src.read(n)
+        tags.extend(t)
+        return got
+
+    feed = BlockSource(read, block, ended=src.stream_ended)
+    offsets = list(range(0, len(x), block))
+
+    def send():
+        for b, off in enumerate(offsets):
+            part = np.ascontiguousarray(x[off:off + block])
+            limit = time.perf_counter() + RTL_WAIT_S
+            while (off - feed.taken + len(part)) * 8 > ring:
+                check(time.perf_counter() < limit, "the TCP source stalled")
+                time.sleep(0.0002)
+            check(sink.send_samples(part, tags=[
+                {"offset": off, "key": "block", "value": b}]),
+                f"TCP send of block {b}")
+        sink.end_stream()
+
+    try:
+        check(src._lib is not None and sink._lib is not None,
+              "the native TCP frame engine is not loaded")
+        run = pump_run(ex, feed, len(offsets), send, drop=drop)
+        run.update(tags=tags, tcp=src.stats(), offsets=offsets)
+    finally:
+        sink.close()
+        src.close()
+    return run
+
+
+def check_rtl_run(run, ref_audio, x, what):
+    """A run that must lose nothing: every block out (the partial last
+    one too), no pump overrun, the inputs equal to ``x`` (the capture as
+    ``read_samples`` converts it), the audio bit-equal to ``ref_audio``
+    (the Flowgraph over ``x``)."""
+    st = run["pump"]
+    print(f"{what}: pump {st}, source {run['full_blocks']} full + "
+          f"{run['partial']} partial blocks of {run['n_blocks']}"
+          + (f", driver {run['rtl']}" if "rtl" in run else "")
+          + (f", TCP source {run['tcp']}" if "tcp" in run else ""))
+    if "rtl" in run:
+        check(run["rtl"]["overflows"] == 0, f"{what}: the driver's ring "
+              "overflowed")
+    if "tcp" in run:
+        check(run["tcp"]["ring_overruns"] == 0 and run["tcp"]["stream_end"],
+              f"{what}: the TCP source overran or saw no stream end")
+    check(st["overruns"] == 0, f"{what}: the pump dropped blocks")
+    check(st["blocks_out"] == run["n_blocks"] == len(run["audio"]),
+          f"{what}: {st['blocks_out']} of {run['n_blocks']} blocks came out")
+    check(np.array_equal(np.concatenate(run["inputs"]), x),
+          f"{what}: the samples read differ from the capture's")
+    check(len(ref_audio) == len(run["audio"]) and all(
+        np.array_equal(a, r) for a, r in zip(run["audio"], ref_audio)),
+        f"{what}: the audio differs from the Flowgraph run")
+
+
+def check_tags(run, what):
+    """Every block's tag came with its value at its byte offset."""
+    got = [(t.get("offset"), t.get("value"), t.get("_offset"))
+           for t in run["tags"]]
+    want = [(off, b, off * 8) for b, off in enumerate(run["offsets"])]
+    check(got == want, f"{what}: tags {got[:4]}... differ from {want[:4]}...")
+
+
+def rtl_scene(path, total: int, cfg, device):
+    """The capture at ``path`` (written) and the Flowgraph over it:
+    (samples as read_samples converts them, the blocks and counts, the
+    Flowgraph's outputs)."""
+    x = u8_samples(rtl_capture(path, total, device))
+    blocks, counts = sample_blocks(x, cfg.block_size, device)
+    outs = run_counted(build_wbfm(cfg, device=device)[0], blocks, counts,
+                       cfg.sample_rate)
+    return x, blocks, counts, outs
+
+
+def rtl_fm_borip(dev, cap, tmp):
+    """``rtl_fm --borip`` against the port's BorIPServer serving the
+    capture through the RTL driver (``rtl transport=file ...``), on the
+    card and with ``--device cpu``: the WAVs within APP_LSB, the tone.
+    Returns B1's launches."""
+    hint = f"rtl transport=file path={cap} rate={int(FS)} tuner={RTL_TUNER}"
+    srv = BorIPServer(("127.0.0.1", 0), default_device=hint)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    orig_remote = borip_client.RemoteDevice
+    borip_client.RemoteDevice = RecordingRemote
+    RecordingRemote.made = []
+    n_blocks = -(-int(RTL_APP_SECONDS * FS) // RTL_APP_BLOCK)
+    try:
+        reset_launches()
+        card_run, cpu_run = app_pair(
+            "rtl_fm --borip (rtl)", rtl_fm.main,
+            ["--borip", f"127.0.0.1:{srv.port}", "--freq", str(STATION_HZ),
+             "--seconds", str(RTL_APP_SECONDS), "--block",
+             str(RTL_APP_BLOCK), "-o", "{a.wav}"], tmp, ["a.wav"],
+            ("xlating_fir_block",), n_blocks)
+        launches = launch_counts()["xlating_fir_block"]
+    finally:
+        borip_client.RemoteDevice = orig_remote
+        srv.shutdown()
+        srv.server_close()
+    stats = [d.final_stats for d in RecordingRemote.made]
+    print(f"rtl path (b) rtl_fm --borip over '{hint}': the clients' "
+          f"receiver stats {stats}")
+    check(card_run[0] == cpu_run[0], "rtl_fm --borip (rtl) stdout")
+    same_wav(card_run[1]["a.wav"], cpu_run[1]["a.wav"])
+    f, sinad = wav_tone(card_run[1]["a.wav"])
+    print(f"rtl path (b) tone: {f:.2f} Hz, SINAD {sinad:.2f} dB")
+    check(abs(f - TONE_HZ) < 5.0 and sinad > 40.0, "rtl_fm --borip tone")
+    return launches
+
+
+def rtl_path(dev):
+    """The RTL-FM equivalent fed by the port's RTL2832 driver: the main
+    path's station quantized to u8 IQ in a capture of RTL_FULL_BLOCKS
+    blocks and a half, (a) read by RTLSource's file transport into the
+    pump and the cascade chain on the card (B1, B3): no overflow, every
+    read equal to the capture, the audio bit-equal to the Flowgraph over
+    it, blocks 0-1 against the CPU, the tone, the rate, latency and idle
+    share; (b) ``rtl_fm --borip`` against the port's BorIPServer opening
+    the driver by its hint, card against CPU; (c) the same samples over
+    the native TCP frame plane, tagged at each block, into the pump and
+    chain: the audio bit-equal, every tag at its offset, the stream end.
+    Returns the kernels' launches of the checked runs."""
+    t0 = time.perf_counter()
+    cfg = WBFMConfig(block_size=BLOCK, audio_chain="cascade",
+                     center_freq=STATION_HZ)
+    total = RTL_FULL_BLOCKS * BLOCK + BLOCK // 2
+    launches = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "capture.u8")
+        x, blocks, counts, outs = rtl_scene(cap, total, cfg, dev)
+        ref = [d[:int(c)].cpu().numpy() for d, c in (o["audio"] for o in outs)]
+        cpu = run_counted(build_wbfm(cfg, device="cpu")[0],
+                          [b.cpu() for b in blocks[:2]], counts[:2], FS)
+        for port in ("audio", "quad"):
+            a, r = valid(outs[:2], port), valid(cpu, port)
+            check([len(v) for v in a] == [len(v) for v in r],
+                  f"rtl path {port} counts, card vs CPU")
+            ka, kr = torch.cat(a).cpu(), torch.cat(r)
+            err, scale = float((ka - kr).abs().max()), float(kr.abs().max())
+            print(f"rtl path blocks 0-1 {port}: card vs CPU max_abs_err "
+                  f"{err:.3e} (bar {1e-4 * scale:.3e})")
+            check(err < 1e-4 * scale, f"rtl path {port}: card and CPU differ")
+        del blocks, outs
+        ex = ingest_executor(cfg, dev)
+
+        run, got = counted("rtl path (a)", MAIN_PATH_KERNELS, len(counts),
+                           lambda: rtl_run(ex, cap, total, FS))
+        for k, v in got.items():
+            launches[k] += v
+        check_rtl_run(run, ref, x, "rtl path (a)")
+        audio = np.concatenate(run["audio"][1:])
+        f, sinad = tone_sinad(audio, cfg.audio_rate)
+        print(f"rtl path (a) {run['name']}, tuner {run['tuner']} tuned to "
+              f"{run['freq']:.3f} Hz (LO {run['lo']:.3f} Hz with the "
+              f"tuner's IF), programmed rate {run['rate']:.3f} "
+              f"samp/s; tone {f:.2f} Hz, SINAD {sinad:.2f} dB over "
+              f"{len(audio)} audio samples")
+        check(abs(f - TONE_HZ) < 5.0, "rtl path tone frequency")
+        check(sinad > 40.0, "rtl path tone SINAD")
+        lat = np.array(run["latency_s"]) * 1e3
+        print(f"rtl path (a): {run['samples']} samples in "
+              f"{run['wall_s']:.4f} s from RTLSource.start to the last audio "
+              f"delivered = {run['samples'] / run['wall_s'] / 1e6:.4f} "
+              f"Msamp/s wall-clock; latency (a block's last read to its "
+              f"audio delivered) median {np.median(lat):.3f} ms, max "
+              f"{lat.max():.3f} ms over {len(lat)} blocks, by block "
+              f"{', '.join(f'{v:.3f}' for v in lat)} ms ({card()})")
+        prof = rtl_run(ex, cap, total, FS, profile=True)
+        check_rtl_run(prof, ref, x, "rtl path (a, profiled)")
+        busy = prof["busy_ms"] / (prof["wall_s"] * 1e3)
+        print(f"rtl path (a) profiled run: kernels {prof['busy_ms']:.4f} ms "
+              f"of {prof['wall_s'] * 1e3:.3f} ms wall; card busy "
+              f"{100 * busy:.3f}%, idle {100 * (1 - busy):.3f}% ({card()})")
+
+        launches["xlating_fir_block"] += rtl_fm_borip(dev, cap, tmp)
+
+        run, got = counted("rtl path (c)", MAIN_PATH_KERNELS, len(counts),
+                           lambda: tcp_run(ex, x))
+        for k, v in got.items():
+            launches[k] += v
+        check_rtl_run(run, ref, x, "rtl path (c) TCP frames")
+        check_tags(run, "rtl path (c)")
+        lat = np.array(run["latency_s"]) * 1e3
+        print(f"rtl path (c) TCP frames: {run['samples']} samples, "
+              f"{len(run['tags'])} tags at their offsets, "
+              f"{run['samples'] / run['wall_s'] / 1e6:.4f} Msamp/s "
+              f"wall-clock, latency median {np.median(lat):.3f} ms, max "
+              f"{lat.max():.3f} ms ({card()})")
+    print(f"rtl path held in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def profile_chain(run, step_ms: float, label: str, kernels=()):
     """Kernel time per step and by name, from torch.profiler over 5
     steps. The busy share is that kernel time over ``step_ms``, the
@@ -4614,6 +5226,7 @@ def main() -> int:
     iq = synth_fm(N_BLOCKS * BLOCK, dev)
     cfg, kern, launches = main_path(dev, iq)
     executor_phase(dev, iq, cfg, kern)
+    count0_phase(dev, iq)
     fused_launches = fused_path(dev, iq)
     for name in FUSED_PATH_KERNELS:
         launches[name] = fused_launches[name]
@@ -4667,6 +5280,8 @@ def main() -> int:
     for name in MAIN_PATH_KERNELS:
         launches[name] += ingest[name]
     for name, n in apps_phase(dev).items():
+        launches[name] += n
+    for name, n in rtl_path(dev).items():
         launches[name] += n
 
     table = []

@@ -10,11 +10,9 @@ The reference's base class is itself a functioning *stub* device (canned
 values, accepts all setters) — kept here as :class:`Device`, the test
 backend. :class:`SyntheticDevice` generates a tone+noise IQ stream
 (the no-hardware capture source); real front-ends (file replay, RTL
-capture shim) subclass the same interface.
-
-The RTL driver (``io/rtl_source.py``) is not ported yet: the hints
-``rtl`` and ``rtl_sdr`` raise ``ValueError`` rather than open another
-device in its place.
+capture shim) subclass the same interface. The hints ``rtl`` and
+``rtl_sdr`` import ``io/rtl_source.py``, which registers the RTL2832
+driver's :class:`~grbaz_tpu_torch.io.rtl_source.RTLSource`.
 """
 
 from __future__ import annotations
@@ -353,8 +351,7 @@ DEVICE_REGISTRY = {
 }
 
 # hints resolved by importing a module that self-registers (the analog of
-# the reference's dynamic `import borip_<id>`, borip_server.py:760-790);
-# the RTL driver's module is not ported yet, so these hints raise
+# the reference's dynamic `import borip_<id>`, borip_server.py:760-790)
 _LAZY_PROVIDERS = {
     "rtl": "grbaz_tpu_torch.io.rtl_source",
     "rtl_sdr": "grbaz_tpu_torch.io.rtl_source",
@@ -375,14 +372,7 @@ def create_device(hint: str) -> Device:
     cls = DEVICE_REGISTRY.get(name)
     if cls is None and name in _LAZY_PROVIDERS:
         import importlib
-        try:
-            importlib.import_module(_LAZY_PROVIDERS[name])  # self-registers
-        except ModuleNotFoundError as e:
-            if e.name != _LAZY_PROVIDERS[name]:
-                raise
-            raise ValueError(
-                f"device hint {name!r}: the RTL driver "
-                f"({_LAZY_PROVIDERS[name]}) is not yet ported") from None
+        importlib.import_module(_LAZY_PROVIDERS[name])  # self-registers
         cls = DEVICE_REGISTRY.get(name)
     if cls is None:
         # reference-convention plugin: a module named borip_<hint> that

@@ -43,7 +43,9 @@ def test_importing_every_module_loads_no_jax():
 # the modules of BASELINE configs 1, 3, 4 and 5, of the burst path, of
 # the simple and per-sample blocks with their two kernels, and of the
 # decoders and FEC with their four, of the P25 and FMCW chains, the
-# multi-device patterns, and the ingest entry points and receive apps
+# multi-device patterns, the ingest entry points and receive apps, and
+# the rest of the host runtime (the RTL2832 driver, the TCP frame plane,
+# the net servers, compat, utils, the host apps and the registry)
 NEW_MODULES = {f"grbaz_tpu_torch.{m}" for m in (
     "ops.agc", "ops.spectral", "ops.colour", "ops.segments", "ops.detect",
     "ops.doa", "models.spectral", "parallel.channel_bank", "ops.burst",
@@ -58,7 +60,13 @@ NEW_MODULES = {f"grbaz_tpu_torch.{m}" for m in (
     "core.config", "native", "net.udp", "net.devices", "net.borip_server",
     "net.borip_client", "io.file_source", "viz.export", "viz.sinks",
     "apps.rtl_fm", "apps.realtime_fft", "apps.fac", "apps.am_fft",
-    "apps.scanner", "apps.papr")}
+    "apps.scanner", "apps.papr", "io.rtl_source", "net.tcp",
+    "net.rate_synchroniser", "net.radar_server", "net.message_server",
+    "net.control_server", "net.hw_control", "compat", "compat.baudline",
+    "compat.horizons", "compat.usrp", "utils.debug", "utils.lut",
+    "utils.missile_launcher", "utils.run_remote", "utils.term",
+    "viz.flipper", "apps.gpsdo", "apps.pps_diff", "apps.control_loop_calc",
+    "apps.convert", "registry")}
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -324,13 +324,29 @@ def test_server_device_teardown_on_disconnect(server):
 
 
 def test_rtl_hint_raises_rather_than_substitute(server):
-    for hint in ("rtl", "rtl_sdr index=0"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            devices.create_device(hint)
+    """The hints ``rtl`` and ``rtl_sdr`` open the port's own RTL2832
+    driver, never another device in its place: ``create_device`` returns
+    the port's RTLSource, and the BorIP ``DEVICE rtl ...`` verb opens it
+    through the port's server (a hint the driver refuses still raises)."""
+    from grbaz_tpu_torch.io.rtl_source import RTLSource
+    for hint in ("rtl transport=sim", "rtl_sdr transport=sim tuner=e4000"):
+        d = devices.create_device(hint)
+        try:
+            assert type(d) is RTLSource
+            assert d.tuner_name() == ("e4000" if "e4000" in hint
+                                      else "r820t")
+        finally:
+            d.close()
+    with pytest.raises(ValueError, match="unknown transport"):
+        devices.create_device("rtl transport=nosuch")
     dev = RemoteDevice("127.0.0.1", server.port, udp_port=0, keepalive=False)
-    resp = dev.command("DEVICE rtl")
-    assert resp.startswith("-") and "not yet ported" in resp
-    dev.close()
+    try:
+        resp = dev.command("DEVICE rtl transport=sim tuner=fc0013")
+        assert not resp.startswith("-"), resp
+        assert "RTL2832 (fc0013)" in resp
+        assert dev.command("RATE 2048000").startswith("OK")
+    finally:
+        dev.close()
 
 
 def test_device_registry_and_file_device(tmp_path):
