@@ -26,11 +26,10 @@ failure of which exits non-zero:
    80 dB below the station and over three all-zero blocks, each between
    signal blocks: every count, limb, LO phase and resampler q and mu
    equal, outputs within 1e-4 of the max and float tails within 1e-5 of
-   theirs after every block; in the all-zero blocks (and the first
-   block after them) ``quad`` may differ only where the discriminator's
-   input is exactly zero, where ``atan2`` reads the signs of the zeros
-   (B1 on the card leaves a sign bit on half its zero outputs, the CPU's
-   plain version none), and the audio and float tails follow it;
+   theirs after every block, the all-zero blocks included: there every
+   output is the CPU's exactly (B1's rotation stores +0 for a zero of
+   either sign, as the plain version gives, so ``atan2`` of a zero
+   discriminator input reads 0 on both);
 5. the fused path: ``WBFMConfig(fused=True)`` (WBFMFrontend on the
    rotated-taps kernel B2) over the same 8 blocks, without and with a
    squelch, counted like phase 3; against its plain backend, the tone,
@@ -194,10 +193,14 @@ fourth case forces a miss in every chunk of the speculative walk
 warm-up): the kernel's worst case, held to the same checks. Each case
 prints the chunks the kernel walked again; its bound is its bytes.
 
+B1 also runs on an all-zero block with a zero tail, held to its plain
+version bit for bit (the signs of its zeros included).
+
 The FasTrak kernel's cases run at its path's [1, 2^20], at the decoder
-bank's [64, 2^14] and with the sync stream held high (nearly every chunk
-walked again, its worst case); the ratio-stream kernel at the AM path's
-2^16-sample f32 block, its walk's chain bound printed beside it.
+bank's [64, 2^14] and with the sync stream held high (every sample a
+candidate frame, the longest chain: its worst case); each prints the
+candidates and the chain's frames. The ratio-stream kernel runs at the AM
+path's 2^16-sample f32 block, its walk's chain bound printed beside it.
 
 The decoders' kernels: K3 (Viterbi) at [2^16, 2] (an AutoFEC block) and
 [2^16 + 96, 2] (a ViterbiDecoder block with its overlap), bits and final
@@ -605,6 +608,11 @@ def kernel_cases(dev):
                                                        P25_FS)), device=dev)
     tail_p25 = cn(tpad_p25)
     xs_p25 = copies(lambda: cn(P25_BLOCK), 8 * P25_BLOCK)
+    # B1 on an all-zero block after an all-zero tail (FileSource's
+    # zero-filled last read): every output a zero of sign +, the plain
+    # version's
+    zero_x = torch.zeros(BLOCK, dtype=torch.complex64, device=dev)
+    zero_tail = torch.zeros(tpad, dtype=torch.complex64, device=dev)
     # B3 at the FasTrak path's shape: float32 at decim 1 through the sync
     # stream's matched filter; each block is the end of a frame
     h_sync = torch.from_numpy(fir.prepare_taps(fastrak_sync_taps(),
@@ -661,6 +669,14 @@ def kernel_cases(dev):
                  xs_p25[0], n_p25, tpad_p25, P25_DECIM, 8),
              nbytes=8 * P25_BLOCK + 12 * tpad_p25 + 8 * n_p25 + 16,
              flops=6 * P25_BLOCK + 4 * tpad_p25 * n_p25),
+        dict(name="xlating_fir_block", shape="all-zero block", bits=True,
+             kernel=lambda i: xf.xlating_fir_block(
+                 zero_x, zero_tail, h_chan, DECIM, phase0, inc),
+             plain=lambda i: xf.xlating_fir_block_plain(
+                 zero_x, zero_tail, h_chan, DECIM, phase0, inc),
+             library=None, geometry=tiling.for_tensor(zero_x, n_out, tpad,
+                                                     DECIM, 8),
+             nbytes=8 * BLOCK + 12 * tpad + 8 * n_out + 16, flops=rot_flops),
         # B3's row: the block entry point at audio_aa, what the cascade
         # chain's FIRDecimator launches; the frame entry point's cases
         # after it are timed for the record
@@ -729,8 +745,7 @@ def kernel_cases(dev):
         fastrak_case(dev, 7, 1, BLOCK, "FasTrak path", gap=FT_PATH_GAP),
         fastrak_case(dev, 8, 64, 1 << 14, "decoder bank"),
         fastrak_case(dev, 10, 1, BLOCK, "frames back to back", gap=(1, 200)),
-        fastrak_case(dev, 9, 1, BLOCK, "forced miss: sync held high",
-                     held=True),
+        fastrak_case(dev, 9, 1, BLOCK, "sync held high", held=True),
         vrr_case(dev),
         *decode_kernel_cases(dev),
     ]
@@ -898,11 +913,12 @@ def fastrak_case(dev, seed, rows, n, shape, os_=FT_OS, gap=(1, 200),
                  held=False):
     """The FasTrak FSM kernel on ``rows`` streams of ``n`` samples of
     :func:`fastrak_rows` (``held``: the sync stream above the threshold
-    everywhere, so that nearly every guess of the speculative walk misses:
-    the kernel's worst case). The check walks two chained calls with the
-    kernel and the plain version and holds events, counts and the whole
-    state equal, and prints the chunks the kernel walked again. Its bytes:
-    metric and sync read once, events, counts and the state."""
+    everywhere, so that every sample is a candidate frame and the chain
+    is the longest it can be: the kernel's worst case). The check walks
+    two chained calls with the kernel and the plain version and holds
+    events, counts and the whole state equal, and prints the candidates
+    (sync hits) and the chain's frames of each call. Its bytes: metric
+    and sync read once, events, counts and the state."""
     rng = np.random.default_rng(seed)
     metric, sync = fastrak_rows(rng, rows, 2 * n, os_, gap)
     if held:
@@ -913,40 +929,42 @@ def fastrak_case(dev, seed, rows, n, shape, os_=FT_OS, gap=(1, 200),
     st0 = {k: v.reshape(1).expand(rows).contiguous() for k, v in
            FastrakDecoder(device=dev).init_state().items()}
     thr = torch.ones(1, device=dev)
-    chunks = rows * -(-n // ff.CHUNK)
     label = f"fastrak_fsm [{shape}]"
 
     def chain(fn):
-        st, out, repairs = st0, [], []
+        st, out, stats = st0, [], []
         for m, y in xs:
             ev, c, st = fn(m, y, st, thr, os_)
             out.append((ev, c, st))
-            repairs.append(ff.fastrak_fsm.last_repairs)
-        return out, repairs
+            stats.append((ff.fastrak_fsm.last_candidates,
+                          ff.fastrak_fsm.last_frames))
+        return out, stats
 
     def held_check():
-        (kern, repairs), (plain, _) = (chain(ff.fastrak_fsm),
-                                       chain(ff.fastrak_fsm_plain))
+        (kern, stats), (plain, _) = (chain(ff.fastrak_fsm),
+                                     chain(ff.fastrak_fsm_plain))
         torch.cuda.synchronize()
-        print(f"{label}: repaired "
-              + " and ".join(str(int(r.sum())) for r in repairs)
-              + f" of {chunks} chunks in the two calls (chunk {ff.CHUNK}, "
-              f"warm {ff.WARM}); frames {[int(p[1].sum()) for p in plain]}")
+        print(f"{label}: candidates and chain frames "
+              + " and ".join(f"{int(c.sum())}, {int(f.sum())}"
+                             for c, f in stats)
+              + f" in the two calls (tile {ff.TILE}); passing frames "
+              f"{[int(p[1].sum()) for p in plain]}")
         for (ek, ck, sk), (ep, cp, sp) in zip(kern, plain):
             check(same_bits(ek, ep) and torch.equal(ck.cpu(), cp.cpu())
                   and all(torch.equal(sk[k].cpu(), sp[k].cpu()) for k in sp),
                   f"{label} differs from its plain version")
         if held:
-            check(all(int(r.sum()) >= 0.8 * (chunks - rows) for r in repairs),
-                  f"{label}: too few misses for the worst case")
+            check(all(int(c.sum()) == rows * n for c, _ in stats),
+                  f"{label}: not every sample a candidate")
         else:
             check(all(int(p[1].sum()) > 0 for p in plain),
                   f"{label}: no frame passed")
         return kern[-1][0], plain[-1][0]
 
-    def repaired():
-        return (f"repaired {int(ff.fastrak_fsm.last_repairs.sum())} of "
-                f"{chunks} chunks (chunk {ff.CHUNK}, warm {ff.WARM})")
+    def chained():
+        return (f"{int(ff.fastrak_fsm.last_candidates.sum())} candidates, "
+                f"{int(ff.fastrak_fsm.last_frames.sum())} chain frames "
+                f"(tile {ff.TILE})")
 
     return dict(name="fastrak_fsm", shape=f"{shape}, [{rows}, {n}]",
                 kernel=lambda i: ff.fastrak_fsm(*xs[i % 2], st0, thr,
@@ -955,7 +973,7 @@ def fastrak_case(dev, seed, rows, n, shape, os_=FT_OS, gap=(1, 200),
                                                      os_)[0],
                 check=held_check, iters=20, plain_iters=1, library=None,
                 nbytes=8 * rows * n + rows * (4 * 3 * 32 + 4 + 2 * 48) + 4,
-                flops=0, after=repaired)
+                flops=0, after=chained)
 
 
 def vrr_case(dev):
@@ -1152,7 +1170,16 @@ def check_kernels(cases):
               f"{label} shape/dtype")
         check(bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
                                   else got).all()), f"{label} finite")
-        check(err < bar, f"{label} disagrees with its plain version")
+        if c.get("bits"):
+            # every bit, the signs of zeros included
+            g, r = ((torch.view_as_real(t) if t.is_complex() else t)
+                    for t in (got, ref))
+            check(same_bits(g, r), f"{label} is not its plain version bit "
+                  "for bit")
+            print(f"kernel {label}: bit-equal to its plain version, "
+                  f"{int(torch.signbit(g).sum())} sign bits set")
+        else:
+            check(err < bar, f"{label} disagrees with its plain version")
 
 
 def run_chain(cfg, dev, iq, n_blocks):
@@ -1289,16 +1316,13 @@ def chain_steps(cfg, device, blocks, counts, start=COUNT0_START):
     return steps
 
 
-def chain_differences(card, cpu, loose=(), exact_zero=None):
+def chain_differences(card, cpu):
     """Every difference between two :func:`chain_steps` runs beyond the
     bars: counts and limbs unequal, outputs beyond COUNT0_OUT_REL of the
     CPU block's max, integer state unequal, float state beyond
-    COUNT0_STATE_REL of its max. In the blocks of ``loose`` only counts,
-    limbs and integer state are held, and ``quad`` outputs beyond the bar
-    only where ``exact_zero[block]`` (a bool tensor over the block's
-    valid outputs) is true, that is where the discriminator's input is
-    exactly zero: the float results there follow a phase that input does
-    not define. Returns (lines, per-block worst relative errors)."""
+    COUNT0_STATE_REL of its max (in an all-zero block, whose max is 0,
+    anything but the CPU's values). Returns (lines, per-block worst
+    relative errors)."""
     bad, worst = [], []
     for b, ((co, cs), (po, ps)) in enumerate(zip(card, cpu)):
         w = {}
@@ -1314,14 +1338,7 @@ def chain_differences(card, cpu, loose=(), exact_zero=None):
             w[port] = err / scale if scale else err
             if err <= COUNT0_OUT_REL * scale:
                 continue
-            beyond = diff > COUNT0_OUT_REL * scale
-            if b in loose:
-                if port != "quad":
-                    continue
-                beyond &= ~exact_zero[b]
-                if not bool(beyond.any()):
-                    continue
-            idx = torch.nonzero(beyond).flatten()
+            idx = torch.nonzero(diff > COUNT0_OUT_REL * scale).flatten()
             bad.append(f"block {b} {port}: {len(idx)} of {cr} outputs beyond "
                        f"the bar (max err {err:.3e}, scale {scale:.3e}), "
                        f"first at {idx[:8].tolist()}: card "
@@ -1331,7 +1348,7 @@ def chain_differences(card, cpu, loose=(), exact_zero=None):
                 scale = float(r.abs().max())
                 err = float((a - r).abs().max())
                 w[name] = err / scale if scale else err
-                if err > COUNT0_STATE_REL * scale and b not in loose:
+                if err > COUNT0_STATE_REL * scale:
                     bad.append(f"block {b} state {name}: max err {err:.3e}"
                                f" of scale {scale:.3e}")
             elif not torch.equal(a, r):
@@ -1339,34 +1356,6 @@ def chain_differences(card, cpu, loose=(), exact_zero=None):
                            f"{r.tolist()}")
         worst.append(w)
     return bad, worst
-
-
-def demod_zero_inputs(cfg, device, blocks, counts):
-    """Per block, over its valid outputs: where the discriminator's
-    input product ``x[i] * conj(x[i - 1])`` is exactly zero (``x`` the
-    channel block's output on ``device``, carried across blocks), and
-    how many of those channel outputs are zeros with a sign bit set."""
-    fg, _ = build_wbfm(cfg, device=device)
-    chan = next(b for b in fg.blocks if b.name == "channel")
-    st, pr = chan.init_state(), chan.init_params()
-    meta = StreamMeta.start(cfg.sample_rate, abs_index=COUNT0_START,
-                            device=device)
-    prev = torch.zeros((), dtype=torch.complex64)
-    zero, neg = [], []
-    for x, c in zip(blocks, counts):
-        s = Stream(torch.from_numpy(x).to(device),
-                   torch.full((), c, dtype=torch.int32, device=device), meta)
-        st, (y,) = chan.apply(st, pr, s)
-        y = y.data[:int(y.count)].cpu()
-        z = y == 0
-        zp = torch.cat([(prev == 0).reshape(1), z[:-1]])
-        zero.append(z | zp)
-        neg.append(int((z & (torch.signbit(y.real)
-                             | torch.signbit(y.imag))).sum()))
-        if len(y):
-            prev = y[-1]
-        meta = meta.advanced(c)
-    return zero, neg
 
 
 def count0_phase(dev, iq):
@@ -1377,12 +1366,10 @@ def count0_phase(dev, iq):
     blocks. Every count and limb, the LO phase and the resampler's q and
     mu equal after every block. Every output up to its count within the
     chain's bar (COUNT0_OUT_REL of the max) and the float tails within
-    COUNT0_STATE_REL of their max, after every block, but in the
-    all-zero run's zero blocks and the signal block after them: there
-    ``quad`` may differ only where the discriminator's input is exactly
-    zero on both sides (``atan2`` of a zero product reads the signs of
-    its zeros, which the two float orders set apart), and the audio and
-    float tails follow ``quad``; the last block is held again in full."""
+    COUNT0_STATE_REL of their max, after every block: in the all-zero
+    blocks, whose max is 0, ``quad``, the audio and the tails are the
+    CPU's exactly (B1 stores +0 for its zero outputs, so ``atan2`` of a
+    zero discriminator input reads 0 on both)."""
     t0 = time.perf_counter()
     host = iq[:6 * BLOCK].cpu().numpy()
     runs = count0_runs([host[b * BLOCK:(b + 1) * BLOCK] for b in range(6)])
@@ -1394,17 +1381,7 @@ def count0_phase(dev, iq):
         for label, (blocks, counts) in runs.items():
             card_run = chain_steps(cfg, dev, blocks, counts)
             cpu_run = chain_steps(cfg, cpu, blocks, counts)
-            loose, exact_zero = (), None
-            if label == "zeros":
-                loose = tuple(range(1, COUNT0_ZEROS + 2))
-                zc, nc = demod_zero_inputs(cfg, dev, blocks, counts)
-                zp, npu = demod_zero_inputs(cfg, cpu, blocks, counts)
-                exact_zero = [a & b for a, b in zip(zc, zp)]
-                print(f"count-0 {chain} zeros: discriminator inputs exactly "
-                      f"zero per block {[int(z.sum()) for z in exact_zero]};"
-                      f" channel zeros with a sign bit, card {nc}, cpu {npu}")
-            lines, worst = chain_differences(card_run, cpu_run, loose,
-                                             exact_zero)
+            lines, worst = chain_differences(card_run, cpu_run)
             print(f"count-0 {chain} {label} (counts {counts}): worst "
                   "relative error per block "
                   + "; ".join(", ".join(f"{k} {v:.2e}" for k, v in w.items()
@@ -2384,9 +2361,8 @@ FT_DELAY = 12 * FT_OS - 1 - FT_OS // 2   # sync peak -> the first bit's middle
 FT_SYNC_THR = 0.75 * (FT_ON - FT_OFF) / 2   # of the matched filter's peak
 FT_FRAMES = 24                       # a block
 FASTRAK_PATH_KERNELS = ("fastrak_fsm", "fir_decimate_frame")
-# the device functions of the FasTrak kernel's four passes
-FASTRAK_PASSES = ("speculate_kernel", "chain_kernel", "apply_kernel",
-                  "last_row_kernel")
+# the device functions of the FasTrak kernel's two passes
+FASTRAK_PASSES = ("candidates_kernel", "chain_kernel")
 
 
 def fastrak_scene(dev):

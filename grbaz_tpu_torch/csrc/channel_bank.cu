@@ -526,8 +526,8 @@ __device__ void tile(const Problem& pr, const Layout& lay, int64_t k0,
       const int64_t k = k0 + r0 + h * 8;
       const int i = 4 * j + 2 * h;
       if (k < pr.n_out)
-        yc[k] = cmul(make_float2(acc[i], acc[i + 1]),
-                     lo_at(p0 + (uint32_t)k * dinc));
+        yc[k] = pfir::plus_zeros(cmul(make_float2(acc[i], acc[i + 1]),
+                                      lo_at(p0 + (uint32_t)k * dinc)));
     }
   }
 }

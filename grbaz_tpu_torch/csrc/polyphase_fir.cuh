@@ -240,6 +240,13 @@ struct StorePlain {
   }
 };
 
+// v with +0 for a zero of either sign (every other value exact): a zero
+// output rotated by a cosine < 0 is -0, whose sign atan2 downstream reads
+// (atan2(+0, -0) = pi), where the plain versions give +0
+__device__ __forceinline__ float2 plus_zeros(float2 v) {
+  return make_float2(__fadd_rn(v.x, 0.f), __fadd_rn(v.y, 0.f));
+}
+
 // y[k] = lo(phase0 + k*decim*inc) * v: one accurate sincosf per output
 struct StoreRotated {
   float2* y;
@@ -251,7 +258,7 @@ struct StoreRotated {
     const uint32_t ph = phase0 + (uint32_t)k * dinc;
     float s, c;
     sincosf(__uint2float_rn(ph) * TO_RAD, &s, &c);
-    y[k] = make_float2(c * v.x - s * v.y, c * v.y + s * v.x);
+    y[k] = plus_zeros(make_float2(c * v.x - s * v.y, c * v.y + s * v.x));
   }
 };
 

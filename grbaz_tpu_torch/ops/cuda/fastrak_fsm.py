@@ -6,11 +6,11 @@ Replaces the per-sample ``lax.scan`` of ``FastrakDecoder.apply``
 ``metric`` and ``sync`` [B, n] as an independent stream, from the [B]
 state fields of ``FastrakDecoder`` (:data:`.misc.FT_FIELDS`), and returns
 (events [B, 32, 3] float32, event count [B] int32, the new state). On the
-card it launches the kernel, a chunk-parallel speculative walk (chunks of
-``chunk`` samples, each but a row's first walking from a SEARCH guess
-``warm`` samples before it, checked in order and walked again where the
-guess missed); on the CPU it runs :func:`.misc.fastrak_fsm_plain`. The
-result is the same bits whatever ``chunk`` and ``warm`` are.
+card it launches the kernel, a chain of candidate frames (every sync hit
+works out the frame a fire there would walk, a tile of ``tile`` samples a
+block; then one block a row follows the fires from frame end to the next
+hit); on the CPU it runs :func:`.misc.fastrak_fsm_plain`. The result is the
+same bits whatever ``tile`` is.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ import ctypes
 
 import torch
 
-from grbaz_tpu_torch.core.device import U32_MASK
 from grbaz_tpu_torch.ops.cuda import build
 from grbaz_tpu_torch.ops.misc import (FT_FIELDS, FT_U32, MAX_EVENTS,
                                       fastrak_fsm_plain)
@@ -27,35 +26,93 @@ from grbaz_tpu_torch.ops.misc import (FT_FIELDS, FT_U32, MAX_EVENTS,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-_SIGNATURES = {"fastrak_fsm": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _P, _P, _P, _P, _P, _P]}
-# the launch's defaults: samples a chunk, warm-up samples before a guess
-# (two frames at oversampling 8 are 1216 samples)
-CHUNK = 1024
-WARM = 1280
-MAX_CHUNK = 1 << 16
-MAX_WARM = 1 << 20
-REC = 32   # ints a chunk record
+_SIGNATURES = {"fastrak_fsm": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P,
+                               _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]}
+# samples a pass-1 block of the launch works out the candidates of, by
+# default and at most (a multiple of 128)
+TILE = 8192
+MAX_TILE = 1 << 14
+# the state dtypes the kernel reads and writes in place, by their bytes
+_BYTES = {torch.bool: 1, torch.int32: 4, torch.int64: 8}
 
 
 def _lib():
     return build.library("fastrak_fsm", _SIGNATURES)
 
 
-def frame_cap(chunk: int) -> int:
-    """Passing frames a chunk's record holds (they pass >= 76 samples
-    apart at any oversampling)."""
-    return chunk // 64 + 2
+def scratch(rows: int, n: int, tile: int, dev):
+    """The kernel's scratch for rows of ``n`` samples as one int32 buffer,
+    and each part's offset in it (ints) by the C entry point's argument
+    names: the candidates (two int32 each, first, so 8-byte aligned), hit
+    words and the hits before each word in its tile, hits a tile and their
+    prefix, each candidate's successor, the candidates and the chain's
+    frames a row."""
+    k = -(-n // tile)
+    words = k * tile // 32
+    sizes = dict(cand=rows * k * tile * 2, hw=rows * words,
+                 wpre=rows * words, cnt=rows * k, tp=rows * (k + 1),
+                 next=rows * k * tile, stats=2 * rows)
+    offs, at = {}, 0
+    for name, size in sizes.items():
+        offs[name] = at
+        at += size
+    return torch.empty(at, dtype=torch.int32, device=dev), offs
+
+
+def _fields(ts):
+    """ctypes arrays of the twelve fields' pointers and element bytes."""
+    return ((ctypes.c_void_p * 12)(*(t.data_ptr() for t in ts)),
+            (ctypes.c_int * 12)(*(_BYTES[t.dtype] for t in ts)))
+
+
+def _launch(lib, metric, sync, state, threshold, oversampling, tile,
+            stream):
+    """The launch on contiguous [B, n] rows: the state's fields read where
+    they lie (bool, int32 or int64; others as int64) and the new state
+    written into three buffers (int32 fields, the uint32 fields as int64,
+    compute_crc as bool), so that no conversion runs on the card. Returns
+    (events, counts, the new state, [2, B] candidates and chain frames)
+    and raises on a CUDA error."""
+    rows, n = metric.shape
+    dev = metric.device
+    thr = threshold.to(torch.float32).reshape(-1).contiguous()
+    ins = []
+    for k in FT_FIELDS:
+        v = state[k].reshape(rows)
+        ins.append((v if v.dtype in _BYTES else v.to(torch.int64))
+                   .contiguous())
+    wide = torch.empty(len(FT_U32), rows, dtype=torch.int64, device=dev)
+    narrow = torch.empty(len(FT_FIELDS) - len(FT_U32) - 1, rows,
+                         dtype=torch.int32, device=dev)
+    flag = torch.empty(rows, dtype=torch.bool, device=dev)
+    it_w, it_n = iter(wide), iter(narrow)
+    new = {k: flag if k == "compute_crc" else
+           next(it_w) if k in FT_U32 else next(it_n) for k in FT_FIELDS}
+    events = torch.empty(rows, MAX_EVENTS, 3, dtype=torch.float32, device=dev)
+    n_ev = torch.empty(rows, dtype=torch.int32, device=dev)
+    buf, offs = scratch(rows, n, tile, dev)
+    base = buf.data_ptr()
+    in_p, in_b = _fields(ins)
+    out_p, out_b = _fields([new[k] for k in FT_FIELDS])
+    err = lib.fastrak_fsm(
+        metric.data_ptr(), sync.data_ptr(), n, rows, thr.data_ptr(),
+        int(thr.numel() > 1), in_p, in_b, events.data_ptr(),
+        n_ev.data_ptr(), out_p, out_b, int(oversampling), int(tile),
+        *(base + 4 * offs[k] for k in ("hw", "wpre", "cnt", "tp", "cand",
+                                       "next", "stats")), stream)
+    build.check(err, "fastrak_fsm")
+    stats = buf[offs["stats"]:offs["stats"] + 2 * rows].view(2, rows)
+    return events, n_ev, new, stats
 
 
 def fastrak_fsm_kernel(metric: torch.Tensor, sync: torch.Tensor,
                        state: dict, threshold: torch.Tensor,
-                       oversampling: int, *, chunk: int = CHUNK,
-                       warm: int = WARM):
+                       oversampling: int, *, tile: int = TILE):
     """Launch the CUDA kernel: ``metric`` and ``sync`` [B, n] float32 on
     the card, ``state`` [B] tensors on it, ``threshold`` [B] or [1]. The
-    count of chunks walked again, per row, is left on the card in
-    ``fastrak_fsm.last_repairs`` (no sync here)."""
+    sync hits (the candidates) and the chain's frames, per row, are left on
+    the card in ``fastrak_fsm.last_candidates`` and ``.last_frames`` (no
+    sync here)."""
     for name, t in (("metric", metric), ("sync", sync)):
         if t.dtype != torch.float32 or t.dim() != 2:
             raise TypeError(f"{name} must be [B, n] float32, not {t.dtype} "
@@ -69,52 +126,29 @@ def fastrak_fsm_kernel(metric: torch.Tensor, sync: torch.Tensor,
     if n < 1 or n >= 2 ** 31 or rows < 1 or rows >= 2 ** 16:
         raise ValueError(f"rows of shape {tuple(metric.shape)} are not "
                          "walkable")
-    if not (32 <= chunk <= MAX_CHUNK) or chunk % 32 or \
-            not 0 <= warm <= MAX_WARM or oversampling < 1:
-        raise ValueError(f"chunk {chunk}, warm {warm} or oversampling "
-                         f"{oversampling} not taken")
+    if not 128 <= tile <= MAX_TILE or tile % 128 or oversampling < 1:
+        raise ValueError(f"tile {tile} or oversampling {oversampling} not "
+                         "taken")
+    if threshold.numel() not in (1, rows):
+        raise ValueError(f"threshold of {threshold.numel()} values for "
+                         f"{rows} rows")
     for k, v in list(state.items()) + [("threshold", threshold)]:
         if v.device != metric.device:
             raise ValueError(f"{k} must lie on {metric.device}, not "
                              f"{v.device}")
-    dev = metric.device
-    metric, sync = metric.contiguous(), sync.contiguous()
-    thr = threshold.to(torch.float32).reshape(-1).expand(rows).contiguous()
-    # uint32 fields go in as their bits: int64 values above 2^31 wrap
-    sin = torch.stack([state[k].reshape(rows).to(torch.int64).to(torch.int32)
-                       for k in FT_FIELDS]).contiguous()
-    events = torch.empty(rows, MAX_EVENTS, 3, dtype=torch.float32, device=dev)
-    n_ev = torch.empty(rows, dtype=torch.int32, device=dev)
-    sout = torch.empty_like(sin)
-    k = -(-n // chunk)
-    rec = torch.empty(rows * k, REC, dtype=torch.int32, device=dev)
-    frames = torch.empty(rows * k, frame_cap(chunk), 3, dtype=torch.int32,
-                         device=dev)
-    late = torch.empty(rows * k * frame_cap(chunk), 3, dtype=torch.float32,
-                       device=dev)
-    totals = torch.empty(rows, dtype=torch.int32, device=dev)
-    repairs = torch.empty(rows, dtype=torch.int32, device=dev)
-    err = _lib().fastrak_fsm(
-        metric.data_ptr(), sync.data_ptr(), n, rows, thr.data_ptr(),
-        sin.data_ptr(), events.data_ptr(), n_ev.data_ptr(), sout.data_ptr(),
-        int(oversampling), int(chunk), int(warm), rec.data_ptr(),
-        frames.data_ptr(), late.data_ptr(), totals.data_ptr(),
-        repairs.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "fastrak_fsm")
+    events, n_ev, new, stats = _launch(
+        _lib(), metric.contiguous(), sync.contiguous(), state, threshold,
+        oversampling, tile, torch.cuda.current_stream(metric.device)
+        .cuda_stream)
     fastrak_fsm.launches += 1
-    fastrak_fsm.last_repairs = repairs
-    new = {}
-    for name, v in zip(FT_FIELDS, sout):
-        new[name] = (v.to(torch.int64) & U32_MASK) if name in FT_U32 else v
-    new["compute_crc"] = new["compute_crc"] != 0
+    fastrak_fsm.last_candidates, fastrak_fsm.last_frames = stats
     return events, n_ev, new
 
 
 def fastrak_fsm(metric: torch.Tensor, sync: torch.Tensor, state: dict,
                 threshold: torch.Tensor, oversampling: int, **launch):
     """The kernel for rows on the card, the plain version for rows on the
-    CPU (``launch``: the kernel's chunk and warm)."""
+    CPU (``launch``: the kernel's tile)."""
     if metric.is_cuda:
         return fastrak_fsm_kernel(metric, sync, state, threshold,
                                   oversampling, **launch)
@@ -122,4 +156,5 @@ def fastrak_fsm(metric: torch.Tensor, sync: torch.Tensor, state: dict,
 
 
 fastrak_fsm.launches = 0
-fastrak_fsm.last_repairs = None
+fastrak_fsm.last_candidates = None
+fastrak_fsm.last_frames = None

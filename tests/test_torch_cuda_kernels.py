@@ -72,6 +72,31 @@ def test_xlating_fir_kernels_match_plain(dev, n, decim, ph, inc):
     assert _err(got, ref) < 1e-5
 
 
+@pytest.mark.parametrize("ph,inc", [(0, 1), (0xFFFFF000, 0x9E3779B9)])
+def test_rotating_kernels_store_plus_zeros_on_zero_input(dev, ph, inc):
+    """An all-zero block after an all-zero tail: B1, B4 and the bank give
+    +0 in every output component, as their plain versions do (a zero
+    rotated by a negative cosine would be -0, and atan2 downstream reads
+    the sign of a zero)."""
+    n, decim, slots = 8192, 8, 4
+    h = _taps(decim, dev)
+    x = torch.zeros(n, dtype=torch.complex64, device=dev)
+    tail = torch.zeros(h.shape[0], dtype=torch.complex64, device=dev)
+    ph_t, inc_t = torch.tensor(ph, device=dev), torch.tensor(inc, device=dev)
+    outs = [xf.xlating_fir_block_kernel(x, tail, h, decim, ph_t, inc_t),
+            xf.xlating_fir_frame_rtf_kernel(torch.cat([tail[1:], x]), h,
+                                            decim, ph_t, inc_t),
+            cb.channel_bank(x, tail[1:].expand(slots, -1).contiguous(), h,
+                            decim, ph_t.expand(slots).contiguous(),
+                            inc_t.expand(slots).contiguous())[0]]
+    ref = xf.xlating_fir_block_plain(x, tail, h, decim, ph_t, inc_t)
+    torch.cuda.synchronize()
+    assert not torch.signbit(torch.view_as_real(ref)).any()
+    for y in outs:
+        re = torch.view_as_real(y)
+        assert not re.any() and not torch.signbit(re).any()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
 @pytest.mark.parametrize("n,decim,spec", [(131072, 8, (21.6e3, 9.6e3)),
                                           (4000, 8, (112.5e3, 75e3)),
@@ -833,9 +858,9 @@ def test_burst_blocks_on_the_card_equal_the_cpu(dev, retrig):
 # the FasTrak FSM (csrc/fastrak_fsm.cu)
 # ---------------------------------------------------------------------------
 
-# (chunk, warm): the defaults, no warm-up at the smallest chunk (most
-# guesses miss), an odd warm-up, a warm-up shorter than a frame
-FT_CHUNKS = [(1024, 1280), (32, 0), (96, 5), (320, 100)]
+# pass-1 tiles: the default, the smallest (shorter than a frame at
+# oversampling 2 and 8), two between
+FT_TILES = [8192, 128, 384, 1024]
 
 
 def _ft_state(rows, dev):
@@ -844,16 +869,16 @@ def _ft_state(rows, dev):
             for k, v in FastrakDecoder(device="cpu").init_state().items()}
 
 
-@pytest.mark.parametrize("chunk,warm", FT_CHUNKS)
+@pytest.mark.parametrize("tile", FT_TILES)
 @pytest.mark.parametrize("rows,n,os_,gap", [(1, 20000, 8, (1, 200)),
                                             (3, 4096, 2, (0, 3)),
                                             (64, 1 << 14, 8, (1, 200)),
                                             (2, 12345, 1, (0, 4))])
-def test_fastrak_kernel_matches_plain(dev, rows, n, os_, gap, chunk, warm):
+def test_fastrak_kernel_matches_plain(dev, rows, n, os_, gap, tile):
     """Events, counts and every state field bit for bit over two chained
     calls: rows of independent streams, frames across the calls and the
-    chunks, more than 32 frames a call at oversampling 1, whatever the
-    chunk and warm-up."""
+    tiles, more than 32 frames a call at oversampling 1, rows of a length
+    no multiple of 4, whatever the tile."""
     import chip_smoke
     from grbaz_tpu_torch.ops.cuda import fastrak_fsm as ff
     gen = np.random.default_rng(rows * n + os_)
@@ -866,8 +891,7 @@ def test_fastrak_kernel_matches_plain(dev, rows, n, os_, gap, chunk, warm):
         y = torch.from_numpy(np.ascontiguousarray(sync[:, c * n:(c + 1) * n]))
         ep, cp, st_p = ff.fastrak_fsm(m, y, st_p, thr, os_)
         ek, ck, st_k = ff.fastrak_fsm(m.to(dev), y.to(dev), st_k,
-                                      thr.to(dev), os_, chunk=chunk,
-                                      warm=warm)
+                                      thr.to(dev), os_, tile=tile)
         torch.cuda.synchronize()
         assert torch.equal(ek.cpu().view(torch.int32), ep.view(torch.int32))
         assert torch.equal(ck.cpu(), cp)
@@ -878,42 +902,43 @@ def test_fastrak_kernel_matches_plain(dev, rows, n, os_, gap, chunk, warm):
 
 
 @pytest.mark.parametrize("scene", ["held", "sparse"])
-@pytest.mark.parametrize("chunk,warm", [(32, 0), (64, 64), (256, 640)])
-def test_fastrak_kernel_repairs(dev, scene, chunk, warm):
-    """The chunks walked again are those the numpy model of the scheme
-    (tests/test_torch_misc.py) walks again: nearly all on a sync stream
-    held above the threshold at a short warm-up, none on sparse frames
-    once the warm-up spans a frame; outputs bit for bit the plain
-    version's."""
+@pytest.mark.parametrize("tile", [128, 1024, 8192])
+def test_fastrak_kernel_chain(dev, scene, tile):
+    """With the sync held above the threshold (every sample a candidate,
+    the longest chain) and on sparse frames: outputs bit for bit the plain
+    version's over two chained calls, and the candidates and chain frames
+    of each call those of the numpy model of the kernel's passes
+    (tests/test_torch_fsm_speculation.py)."""
     import chip_smoke
     from grbaz_tpu_torch.ops.cuda import fastrak_fsm as ff
-    from test_torch_fsm_speculation import (ft_initial_state,
-                                            speculative_fastrak)
-    gen = np.random.default_rng(chunk + warm)
+    from test_torch_fsm_speculation import chain_fastrak, ft_initial_state
+    gen = np.random.default_rng(tile)
     rows, n = 2, 4096
-    metric, sync = chip_smoke.fastrak_rows(gen, rows, n, 4)
+    metric, sync = chip_smoke.fastrak_rows(gen, rows, 2 * n, 4)
     if scene == "held":
         sync = np.full_like(sync, 5.0)
     thr = np.ones(rows, np.float32)
-    _, _, _, rep_m = speculative_fastrak(metric, sync, ft_initial_state(rows),
-                                         thr, 4, chunk, warm)
-    ek, ck, sk = ff.fastrak_fsm(torch.from_numpy(metric).to(dev),
-                                torch.from_numpy(sync).to(dev),
-                                _ft_state(rows, dev),
-                                torch.from_numpy(thr).to(dev), 4,
-                                chunk=chunk, warm=warm)
-    rep_k = ff.fastrak_fsm.last_repairs.cpu().numpy()
-    ep, cp, sp = ff.fastrak_fsm(torch.from_numpy(metric),
-                                torch.from_numpy(sync),
-                                _ft_state(rows, "cpu"),
-                                torch.from_numpy(thr), 4)
-    assert torch.equal(ek.cpu().view(torch.int32), ep.view(torch.int32))
-    assert torch.equal(ck.cpu(), cp)
-    for k in sp:
-        assert torch.equal(sk[k].cpu(), sp[k]), k
-    assert list(rep_k) == list(rep_m)
-    if scene == "sparse" and warm >= 4 * 76 + 1:
-        assert list(rep_k) == [0] * rows
+    st_m, st_k, st_p = (ft_initial_state(rows), _ft_state(rows, dev),
+                        _ft_state(rows, "cpu"))
+    for c in range(2):
+        m = np.ascontiguousarray(metric[:, c * n:(c + 1) * n])
+        y = np.ascontiguousarray(sync[:, c * n:(c + 1) * n])
+        *_, st_m, cand, frames = chain_fastrak(m, y, st_m, thr, 4, tile)
+        ek, ck, st_k = ff.fastrak_fsm(torch.from_numpy(m).to(dev),
+                                      torch.from_numpy(y).to(dev), st_k,
+                                      torch.from_numpy(thr).to(dev), 4,
+                                      tile=tile)
+        got = (ff.fastrak_fsm.last_candidates.cpu().tolist(),
+               ff.fastrak_fsm.last_frames.cpu().tolist())
+        ep, cp, st_p = ff.fastrak_fsm(torch.from_numpy(m), torch.from_numpy(y),
+                                      st_p, torch.from_numpy(thr), 4)
+        assert torch.equal(ek.cpu().view(torch.int32), ep.view(torch.int32))
+        assert torch.equal(ck.cpu(), cp)
+        for k in st_p:
+            assert torch.equal(st_k[k].cpu(), st_p[k]), k
+        assert got == (cand.tolist(), frames.tolist())
+        if scene == "held":
+            assert got[0] == [n] * rows
 
 
 def test_fastrak_wrapper_counts_launches_and_rejects_bad_input(dev):
@@ -933,7 +958,7 @@ def test_fastrak_wrapper_counts_launches_and_rejects_bad_input(dev):
     with pytest.raises(ValueError):
         ff.fastrak_fsm_kernel(x, x, st, thr, 0)
     with pytest.raises(ValueError):
-        ff.fastrak_fsm_kernel(x, x, st, thr, 8, chunk=1000)
+        ff.fastrak_fsm_kernel(x, x, st, thr, 8, tile=1000)
     assert ff.fastrak_fsm.launches == before + 1
 
 

@@ -1,7 +1,8 @@
-"""The chunk-parallel speculative walks of the lockout peak FSM and of the
-FasTrak decoder, as numpy models, == their serial walks
-(``ops/detect.peak_fsm_plain``, ``ops/misc.fastrak_fsm_plain``) bit for
-bit. This module imports no JAX: the card tests take the models from it.
+"""The chunk-parallel speculative walk of the lockout peak FSM and the
+chain of candidate frames of the FasTrak decoder, as numpy models, ==
+their serial walks (``ops/detect.peak_fsm_plain``,
+``ops/misc.fastrak_fsm_plain``) bit for bit. This module imports no JAX:
+the card tests take the models from it.
 
 ``csrc/peak_fsm.cu`` cuts each row into chunks of ``chunk`` samples. Every
 chunk but the first walks from a guess: an idle state (not rising, not
@@ -267,97 +268,147 @@ def test_speculation_hits_well_spaced_pulses():
 # ---------------------------------------------------------------------------
 # the FasTrak FSM (csrc/fastrak_fsm.cu)
 #
-# The kernel cuts each row into chunks, walks every chunk but the first
-# from a SEARCH guess after a warm-up, checks the guesses in order on the
-# fields live in the guess's state, walks the misses again, carries each
-# group of fields from the last chunk that wrote it, and patches the
-# passing frames' repeat counts from the chunks before.
+# A fire happens only in SEARCH, at a sync hit, and the frame it starts is
+# a function of the metric's signs at its sampled bits alone. Pass 1 of
+# the kernel works out, for every hit of a tile, the frame a fire there
+# would walk; pass 2 follows the fires from each frame's end to the first
+# hit after it, one block a row, writing each frame's groups of fields and
+# numbering the passing frames. A frame carried in from the call before,
+# or open at the row's end, is walked step by step.
 # ---------------------------------------------------------------------------
 
-# the groups of fields (indices into FT_FIELDS) a state holds live, by the
-# group's bit: the fire's fields, crc_bits, payload_len, the ID
-GROUPS = ((1, 2, 3, 4, 7), (6,), (8,), (9,))
-LIVE = (0, 1, 3, 7, 15)   # by state: SEARCH, SYNC, TYPE, DECODE, CRC
+OPEN = 3   # a candidate's length code: 12, 28, 76 bits (0-2), or open
 
 
-def agrees(g: list, s: list) -> bool:
-    """The kernel's check: state and crc_buf, and each group live in the
-    guess's state, equal."""
-    if g[0] != s[0] or g[5] != s[5]:
-        return False
-    return all(g[i] == s[i] for grp, idx in enumerate(GROUPS)
-               if LIVE[g[0]] >> grp & 1 for i in idx)
+def frame_len(code: int) -> int:
+    return (12, 28, 76)[code]
 
 
-def speculative_fastrak(metric, sync, state, thr, os_, chunk, warm):
-    """The kernel's scheme over rows [B, n] (numpy): (events, counts, the
-    new state as a dict of numpy [B], repaired chunks per row)."""
+def _crc_bytes(crc: int, v: int, nbytes: int) -> int:
+    for s in range(8 * (nbytes - 1), -1, -8):
+        crc = ftm._crc16_ccitt_update(crc, (v >> s) & 0xFF)
+    return crc
+
+
+def frame_at(bit: np.ndarray, p: int, os_: int):
+    """(length code, CRC, ID) of the frame a fire at ``p`` walks over the
+    row's metric signs ``bit`` (the kernel's ``frame_at``)."""
+    n = len(bit)
+
+    def word(k0, count):
+        q = p + os_ * np.arange(k0, k0 + count)
+        if q[-1] >= n:
+            return None
+        return int("".join(map(str, bit[q])), 2)
+
+    w = word(0, 12)
+    if w is None:
+        return OPEN, 0, 0
+    if w != ftm.SYNC_WORD:
+        return 0, 0, 0
+    ty = word(12, 16)
+    if ty is None:
+        return OPEN, 0, 0
+    crc = _crc_bytes(0, ty, 2)
+    if ty != ftm.PT_ID:
+        return 1, crc, 0
+    ident, cw = word(28, 32), word(60, 16)
+    if ident is None or cw is None:
+        return OPEN, 0, 0
+    return 2, _crc_bytes(_crc_bytes(crc, ident, 4), cw, 2), ident
+
+
+def candidates(bit: np.ndarray, hit: np.ndarray, os_: int, tile: int):
+    """Pass 1: each tile's hits in position order, as (p, code, crc, id)."""
+    return [[(int(p),) + frame_at(bit, int(p), os_)
+             for p in np.flatnonzero(hit[t0:t0 + tile]) + t0]
+            for t0 in range(0, len(bit), tile)]
+
+
+def chain_fastrak(metric, sync, state, thr, os_, tile):
+    """The kernel's passes over rows [B, n] (numpy): (events, counts, the
+    new state as a dict of numpy [B], candidates a row, the chain's frames
+    a row)."""
     rows, n = metric.shape
     events = np.zeros((rows, ftm.MAX_EVENTS, 3), np.float32)
     n_ev = np.zeros(rows, np.int32)
     st = {k: np.array(v, np.int64, copy=True) for k, v in state.items()}
-    repairs = np.zeros(rows, np.int64)
+    n_cand = np.zeros(rows, np.int64)
+    n_frames = np.zeros(rows, np.int64)
     for r in range(rows):
-        bit = (metric[r] >= 0).astype(int)
-        hit = sync[r] >= thr[r]
+        bit = (metric[r] >= 0).astype(np.int64)
+        tiles = candidates(bit, sync[r] >= thr[r], os_, tile)
+        tp = np.concatenate([[0], np.cumsum([len(t) for t in tiles])])
+        flat = [c for t in tiles for c in t]
 
-        def walk(s, i0, i1, on_emit=None):
-            mask = 0
-            for i in range(i0, i1):
-                if ftm.ft_step(s, int(bit[i]), bool(hit[i]), os_) and on_emit:
-                    on_emit(s[9])
-                mask |= LIVE[s[0]]
-            return mask
+        def rank(q):
+            """Hits before sample q: its tile's prefix and the tile's own."""
+            t = q // tile
+            return int(tp[t]) + sum(1 for c in tiles[t] if c[0] < q)
 
-        recs = []   # speculate
-        for c0 in range(0, n, chunk):
-            if c0 == 0:
-                s = ftm.ft_state_list(st, r)[:10]
-            else:
-                s = [0] * 10
-                walk(s, max(c0 - warm, 0), c0)
-            guess, frames = list(s), []
-            mask = LIVE[guess[0]] | walk(s, c0, min(c0 + chunk, n),
-                                         frames.append)
-            recs.append((c0, guess, list(s), mask, frames))
-        # check, carry, patch; repair the misses
-        true = ftm.ft_state_list(st, r)
-        S, carry = true[:10], dict(id=true[10], count=true[11], total=0)
+        s = ftm.ft_state_list(st, r)
+        carry = dict(id=s[10], count=s[11], emitted=0,
+                     r31=np.zeros(3, np.float32))
 
-        def put(ident, count):
-            ftm.ft_emit(events[r], carry["total"], ident, count)
-            carry["total"] += 1
+        def emit(ident):
+            carry["count"] = (ftm._i32(carry["count"] + 1)
+                              if ident == carry["id"] else 1)
+            carry["id"] = ident
+            v = np.array([ident >> 16, ident & 0xFFFF, carry["count"]],
+                         np.float32)
+            if carry["emitted"] < ftm.MAX_EVENTS - 1:
+                events[r, carry["emitted"]] = v
+            else:   # row 31: the later frames summed in frame order
+                carry["r31"] = carry["r31"] + v
+            carry["emitted"] += 1
 
-        for c0, guess, end, mask, frames in recs:
-            if c0 == 0 or agrees(guess, S):
-                S[0], S[5] = end[0], end[5]
-                for grp, idx in enumerate(GROUPS):
-                    if mask >> grp & 1:
-                        for i in idx:
-                            S[i] = end[i]
-                if frames:
-                    add = carry["count"] if frames[0] == carry["id"] else 0
-                    lead, local, last = True, 0, None
-                    for ident in frames:
-                        local = local + 1 if ident == last else 1
-                        lead = lead and ident == frames[0]
-                        put(ident, ftm._i32(local + add) if lead else local)
-                        last = ident
-                    carry["count"] = ftm._i32(local + add) if lead else local
-                    carry["id"] = last
-            else:
-                repairs[r] += 1
+        def walk_frame(i, fire):
+            """The frame in s stepped from sample i (a fire there if
+            ``fire``) to its return to SEARCH or the row's end; returns the
+            sample after."""
+            while i < n:
+                if not fire and s[1] > 0:
+                    d = min(s[1], n - i)
+                    s[1] -= d
+                    i += d
+                    continue
+                if ftm.ft_step(s, int(bit[i]), fire, os_):
+                    emit(s[9])
+                fire = False
+                i += 1
+                if s[0] == ftm.SEARCH:
+                    break
+            return i
 
-                def true_emit(ident):
-                    carry["count"] = (ftm._i32(carry["count"] + 1)
-                                      if ident == carry["id"] else 1)
-                    carry["id"] = ident
-                    put(ident, carry["count"])
-                walk(S, c0, min(c0 + chunk, n), true_emit)
-        n_ev[r] = min(carry["total"], ftm.MAX_EVENTS)
-        for k, v in zip(ftm.FT_FIELDS, S + [carry["id"], carry["count"]]):
+        i = walk_frame(0, False) if s[0] != ftm.SEARCH else 0
+        cur = rank(i) if i < n else len(flat)
+        while cur < len(flat):
+            p, code, crc, ident = flat[cur]
+            n_frames[r] += 1
+            if code == OPEN:
+                walk_frame(p, True)
+                break
+            # the groups a frame writes: the fire's always, crc_buf and
+            # crc_bits where the sync word passed, payload_len and the ID
+            # where the type passed
+            s[0], s[1], s[2], s[3], s[4], s[7] = (ftm.SEARCH, os_ - 1, 0, 0,
+                                                  crc, int(code > 0))
+            if code > 0:
+                s[5], s[6] = 0, 16 if code == 1 else 64
+            if code == 2:
+                s[8], s[9] = 32, ident
+                if crc == 0:
+                    emit(ident)
+            q = p + (frame_len(code) - 1) * os_ + 1
+            cur = rank(q) if q < n else len(flat)
+        if carry["emitted"] >= ftm.MAX_EVENTS:
+            events[r, -1] = carry["r31"]
+        n_ev[r] = min(carry["emitted"], ftm.MAX_EVENTS)
+        for k, v in zip(ftm.FT_FIELDS, s[:10] + [carry["id"],
+                                                 carry["count"]]):
             st[k][r] = v
-    return events, n_ev, st, repairs
+        n_cand[r] = len(flat)
+    return events, n_ev, st, n_cand, n_frames
 
 
 def _ft_plain(metric, sync, st, thr, os_):
@@ -373,6 +424,20 @@ def ft_initial_state(rows):
     return {k: np.zeros(rows, np.int64) for k in ftm.FT_FIELDS}
 
 
+def _same_as_plain(metric, sync, st_m, st_p, thr, os_, tile):
+    """One call of the model and the plain version, held bit for bit;
+    returns both new states, the model's candidates and chain frames and
+    the plain version's counts."""
+    em, cm, st_m, cand, frames = chain_fastrak(metric, sync, st_m, thr, os_,
+                                               tile)
+    ep, cp, st_p = _ft_plain(metric, sync, st_p, thr, os_)
+    np.testing.assert_array_equal(em.view(np.int32), ep.view(np.int32))
+    np.testing.assert_array_equal(cm, cp)
+    for k in ftm.FT_FIELDS:
+        np.testing.assert_array_equal(st_m[k], st_p[k], k)
+    return st_m, st_p, cand, frames, cp
+
+
 FT_SCENES = {
     "sparse os 8": lambda g: chip_smoke.fastrak_rows(g, 2, 2 * 4096, 8),
     "dense os 2": lambda g: chip_smoke.fastrak_rows(g, 2, 2 * 3000, 2,
@@ -383,32 +448,67 @@ FT_SCENES = {
                                                          2)[0],
                                  np.full((1, 4000), 5.0, np.float32)),
 }
+# tiles of the kernel's pass 1: 128 samples is shorter than a frame at
+# every oversampling of the scenes but 1 (76 samples)
+FT_TILES = (128, 384, 1024, 8192)
 
 
-@pytest.mark.parametrize("chunk,warm", [(32, 0), (64, 64), (200, 700),
-                                        (1024, 1280)])
+@pytest.mark.parametrize("tile", FT_TILES)
 @pytest.mark.parametrize("scene", list(FT_SCENES))
-def test_speculative_fastrak_equals_the_serial_walk(scene, chunk, warm):
+def test_chain_fastrak_equals_the_serial_walk(scene, tile):
     """Events, counts and the whole state bit for bit over two chained
-    calls, whatever the chunk and warm-up."""
-    gen = np.random.default_rng(len(scene) + chunk)
+    calls, whatever the tile; with the sync held high every sample is a
+    candidate."""
+    gen = np.random.default_rng(len(scene) + tile)
     metric, sync = FT_SCENES[scene](gen)
     os_ = int(scene.split("os ")[1]) if "os" in scene else 2
     rows, total = metric.shape
     n = total // 2
     thr = np.ones(rows, np.float32)
     st_m = st_p = ft_initial_state(rows)
+    passed = 0
     for c in range(2):
         m = np.ascontiguousarray(metric[:, c * n:(c + 1) * n])
         y = np.ascontiguousarray(sync[:, c * n:(c + 1) * n])
-        em, cm, st_m, rep = speculative_fastrak(m, y, st_m, thr, os_, chunk,
-                                                warm)
-        ep, cp, st_p = _ft_plain(m, y, st_p, thr, os_)
-        np.testing.assert_array_equal(em.view(np.int32), ep.view(np.int32))
-        np.testing.assert_array_equal(cm, cp)
-        for k in ftm.FT_FIELDS:
-            np.testing.assert_array_equal(st_m[k], st_p[k], k)
-        if scene == "sync held high" and warm <= 64:
-            # nearly every guess fires out of step with the truth
-            assert rep.sum() >= 0.8 * rows * (-(-n // chunk) - 1)
-    assert cp.sum() > 0 or scene == "sync held high"
+        st_m, st_p, cand, frames, cp = _same_as_plain(m, y, st_m, st_p, thr,
+                                                      os_, tile)
+        passed += int(cp.sum())
+        if scene == "sync held high":
+            assert list(cand) == [n] * rows
+            # a frame of 12 bits at most every 11 * os + 1 samples
+            assert frames.min() >= n // (75 * os_ + 1)
+        else:
+            assert (frames <= cand).all()
+    assert passed > 0 or scene == "sync held high"
+
+
+@pytest.mark.parametrize("cut", [5, 80, 200, 290])
+def test_chain_fastrak_frame_open_across_calls(cut):
+    """A passing frame cut by the call's end ``cut`` samples after its fire
+    (in its sync word, type, ID or CRC at oversampling 4): the chain's last
+    frame is open, the state carried out is mid-frame, and the next call
+    walks it to its end and emits it, bit for bit the plain version."""
+    os_, n = 4, 2000
+    gen = np.random.default_rng(cut)
+    metric = np.full((1, 2 * n), -1.0, np.float32)
+    sync = np.zeros((1, 2 * n), np.float32)
+    ids = chip_smoke.FT_IDS
+    for p, ident in ((300, ids[0]), (n - cut, ids[0]), (n + 700, ids[1])):
+        wave = np.repeat(np.array(chip_smoke.fastrak_bits(ident), np.float32)
+                         * 2 - 1, os_)
+        metric[0, p:p + wave.size] = wave
+        sync[0, p] = 5.0
+    metric += 0.2 * gen.standard_normal(metric.shape).astype(np.float32)
+    thr = np.ones(1, np.float32)
+    st_m = st_p = ft_initial_state(1)
+    counts = []
+    for c in range(2):
+        st_m, st_p, cand, frames, cp = _same_as_plain(
+            metric[:, c * n:(c + 1) * n].copy(),
+            sync[:, c * n:(c + 1) * n].copy(), st_m, st_p, thr, os_, 256)
+        counts.append(int(cp[0]))
+        if c == 0:
+            assert st_m["state"][0] != ftm.SEARCH
+            assert list(frames) == [2]
+    assert counts == [1, 2]
+    assert st_m["last_id_count"][0] == 1

@@ -27,6 +27,8 @@
 struct float2 { float x, y; };
 struct float3 { float x, y, z; };
 struct float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline float3 make_float3(float a, float b, float c) { return {a, b, c}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
@@ -75,6 +77,9 @@ inline T shim_from_lane(T v, int src) {
   return r;
 }
 inline long long __shfl_xor_sync(unsigned, long long v, int off) {
+  return shim_from_lane(v, (shim_tid & 31) ^ off);
+}
+inline unsigned __shfl_xor_sync(unsigned, unsigned v, int off) {
   return shim_from_lane(v, (shim_tid & 31) ^ off);
 }
 inline std::mutex shim_atomic_mutex;

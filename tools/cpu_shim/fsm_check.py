@@ -8,9 +8,14 @@ Rewrites ``grbaz_tpu_torch/csrc/fastrak_fsm.cu`` and ``vrr_walk.cu`` (or
 those in ``--csrc``) for ``cuda_shim.h`` (see ``bank_check.py``), builds
 them with g++ into BUILD_DIR (default ``_archive/cpu_shim``, git-ignored)
 and holds them to their plain versions over chained calls. The FSM:
-events, counts and the whole state bit for bit, at several chunk and
-warm-up pairs, on sparse and dense frames, past 32 frames a call, and on
-a sync stream held above the threshold (every chunk walked again). The
+events, counts and the whole state bit for bit, at several tile sizes
+(one shorter than a frame), on sparse and dense frames, past 32 frames a
+call, on a sync stream held above the threshold (every sample a
+candidate; and at oversampling 400, where every frame's successor lies
+past the next window), on rows whose length is no multiple of 4 (the kernel's
+4-byte loads) and at an oversampling whose frames outgrow the staged
+signs (read from the row); the candidates and the chain's frames equal
+those of the numpy model (``tests/test_torch_fsm_speculation.py``). The
 walk: counts, positions, overrun flags and tails equal and outputs within
 1e-5 of the max, float32 and complex64, across tiles of the kernel and
 with too small a capacity. Exits non-zero if a case fails.
@@ -43,6 +48,10 @@ from grbaz_tpu_torch.ops.resampler import (HIST,  # noqa: E402
                                            VariableRatioResampler,
                                            vrr_walk_plain)
 
+sys.path.insert(0, str(ROOT / "tests"))
+from test_torch_fsm_speculation import (chain_fastrak,  # noqa: E402
+                                        ft_initial_state)
+
 
 def build(csrc: pathlib.Path, out: pathlib.Path, name: str) -> pathlib.Path:
     out.mkdir(parents=True, exist_ok=True)
@@ -67,60 +76,42 @@ def build(csrc: pathlib.Path, out: pathlib.Path, name: str) -> pathlib.Path:
     return so
 
 
-def launch(lib, metric, sync, state, thr, os_, chunk, warm):
-    """The kernel through the shim on CPU tensors, as the wrapper calls
-    it on the card."""
-    rows, n = metric.shape
-    sin = torch.stack([state[k].reshape(rows).to(torch.int64)
-                       .to(torch.int32) for k in misc.FT_FIELDS]).contiguous()
-    events = torch.full((rows, misc.MAX_EVENTS, 3), float("nan"))
-    n_ev = torch.full((rows,), -7, dtype=torch.int32)
-    sout = torch.full_like(sin, -7)
-    k = -(-n // chunk)
-    rec = torch.full((rows * k, ff.REC), -7, dtype=torch.int32)
-    frames = torch.full((rows * k, ff.frame_cap(chunk), 3), -7,
-                        dtype=torch.int32)
-    late = torch.full((rows * k * ff.frame_cap(chunk), 3), float("nan"))
-    totals = torch.full((rows,), -7, dtype=torch.int32)
-    repairs = torch.full((rows,), -7, dtype=torch.int32)
-    thr = thr.reshape(-1).expand(rows).contiguous()
-    err = lib.fastrak_fsm(metric.data_ptr(), sync.data_ptr(), n, rows,
-                          thr.data_ptr(), sin.data_ptr(), events.data_ptr(),
-                          n_ev.data_ptr(), sout.data_ptr(), os_, chunk, warm,
-                          rec.data_ptr(), frames.data_ptr(), late.data_ptr(),
-                          totals.data_ptr(), repairs.data_ptr(), None)
-    assert err == 0, err
-    new = {}
-    for name, v in zip(misc.FT_FIELDS, sout):
-        new[name] = (v.to(torch.int64) & 0xFFFFFFFF) if name in misc.FT_U32 \
-            else v
-    new["compute_crc"] = new["compute_crc"] != 0
-    return events, n_ev, new, repairs
+def launch(lib, metric, sync, state, thr, os_, tile):
+    """The kernel through the shim on CPU tensors, by the wrapper's own
+    ``_launch``."""
+    return ff._launch(lib, metric, sync, state, thr, os_, tile, None)
 
 
-def case(lib, label, metric, sync, os_, chunk, warm, calls=2):
+def case(lib, label, metric, sync, os_, tile, calls=2):
     rows, total = metric.shape
     n = total // calls
     st = {k: v.reshape(1).expand(rows).contiguous() for k, v in
           misc.FastrakDecoder(device="cpu").init_state().items()}
     thr = torch.tensor([1.0])
-    sk, sp, ok, reps = st, st, True, []
+    sk, sp, ok, stats = st, st, True, []
+    sm = ft_initial_state(rows)
     for c in range(calls):
         m = torch.from_numpy(np.ascontiguousarray(metric[:, c * n:(c + 1) * n]))
         y = torch.from_numpy(np.ascontiguousarray(sync[:, c * n:(c + 1) * n]))
-        ek, ck, sk, rk = launch(lib, m, y, sk, thr, os_, chunk, warm)
+        ek, ck, sk, rk = launch(lib, m, y, sk, thr, os_, tile)
         ep, cp, sp = misc.fastrak_fsm_plain(m, y, sp, thr, os_)
+        *_, sm, cand, frames = chain_fastrak(
+            m.numpy(), y.numpy(), sm, np.ones(rows, np.float32), os_, tile)
         same = (torch.equal(ek.view(torch.int32), ep.view(torch.int32))
                 and torch.equal(ck, cp)
-                and all(torch.equal(sk[k], sp[k]) for k in sp))
+                and all(torch.equal(sk[k], sp[k]) for k in sp)
+                and rk[0].tolist() == cand.tolist()
+                and rk[1].tolist() == frames.tolist())
         ok &= same
-        reps.append(int(rk.sum()))
+        stats.append((int(rk[0].sum()), int(rk[1].sum())))
         if not same:
             print(f"  call {c}: counts {ck.tolist()} vs {cp.tolist()}; "
+                  f"candidates {rk[0].tolist()} vs {cand.tolist()}, frames "
+                  f"{rk[1].tolist()} vs {frames.tolist()}; "
                   + ", ".join(k for k in sp if not torch.equal(sk[k], sp[k])))
-    print(f"{label} [{rows}, {n}] x{calls} chunk {chunk} warm {warm}: "
+    print(f"{label} [{rows}, {n}] x{calls} tile {tile}: "
           f"{'ok' if ok else 'DIFFERS'}, events {cp.tolist()[:4]}, "
-          f"repaired {reps} of {rows * -(-n // chunk)} a call", flush=True)
+          f"(candidates, chain frames) a call {stats}", flush=True)
     return ok
 
 
@@ -197,13 +188,27 @@ def main(argv) -> int:
     dense = chip_smoke.fastrak_rows(rng, 2, 2 * 5000, 2, gap=(0, 3))
     held = (chip_smoke.fastrak_rows(rng, 2, 2 * 3000, 2)[0],
             np.full((2, 6000), 5.0, np.float32))
-    for chunk, warm in ((32, 0), (64, 64), (256, 640), (1024, 1280)):
-        ok &= case(lib, "sparse os 4", *sparse, 4, chunk, warm)
-        ok &= case(lib, "dense os 2", *dense, 2, chunk, warm)
-    ok &= case(lib, "sync held high", *held, 2, 64, 64)
+    for tile in (128, 256, 1024, 8192):
+        ok &= case(lib, "sparse os 4", *sparse, 4, tile)
+        ok &= case(lib, "dense os 2", *dense, 2, tile)
+    ok &= case(lib, "sync held high", *held, 2, 128)
+    ok &= case(lib, "sync held high", *held, 2, 8192)
+    # the sync held high at oversampling 400: a frame's successor lies at
+    # least 4401 candidates on, past the next window, which the chain then
+    # loads afresh
+    ahead = (chip_smoke.fastrak_rows(rng, 1, 2 * 40000, 400, gap=(0, 100))[0],
+             np.full((1, 80000), 5.0, np.float32))
+    ok &= case(lib, "sync held high os 400", *ahead, 400, 8192)
     # more than 32 passing frames a call: the summed last row
     many = chip_smoke.fastrak_rows(rng, 1, 2 * 20000, 1, gap=(0, 4))
-    ok &= case(lib, "many frames os 1", *many, 1, 128, 200)
+    ok &= case(lib, "many frames os 1", *many, 1, 128)
+    # rows of 5999 samples: no 16-byte loads
+    odd = chip_smoke.fastrak_rows(rng, 2, 2 * 5999, 4, gap=(0, 40))
+    ok &= case(lib, "odd rows os 4", *odd, 4, 256)
+    # frames of 76 * 3500 samples: their signs past the staged 2^17
+    wide = chip_smoke.fastrak_rows(rng, 1, 2 * 400000, 3500,
+                                   gap=(0, 20000))
+    ok &= case(lib, "wide bits os 3500", *wide, 3500, 8192)
     for dtype in (torch.float32, torch.complex64):
         ok &= vrr_case(vlib, "several tiles", dtype, 12000, 3, 1.3)
         ok &= vrr_case(vlib, "ratio below 1", dtype, 3000, 2, 0.7)

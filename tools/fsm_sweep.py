@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Sweep an FSM kernel's chunk and warm-up lengths on one card.
+"""Sweep an FSM kernel's launch geometry on one card.
 
     python3 tools/fsm_sweep.py [CHUNK,WARM ...]
-    python3 tools/fsm_sweep.py --fastrak [CHUNK,WARM ...]
+    python3 tools/fsm_sweep.py --fastrak [TILE ...]
 
 From the root of a checkout. For each (chunk, warm) pair (by default a
 grid of 64-512 by 64-512) it runs ``csrc/peak_fsm.cu`` through
@@ -15,13 +15,13 @@ once a scene; it then prints the kernel's time (CUDA events,
 ``chip_smoke.time_ms``, 20 launches) and the chunks it walked again.
 Timings compare only within one call.
 
-``--fastrak`` sweeps ``csrc/fastrak_fsm.cu`` the same way (by default
-chunks of 256-4096 by warm-ups of 640-2560) on the FasTrak path's
-decoder inputs (block 0 of ``chip_smoke.fastrak_scene`` through the
-path's graph, [1, 2^20]), ``chip_smoke.fastrak_rows`` at the path's
-density and back to back at [1, 2^20], the decoder bank's [64, 2^14],
-and the sync stream held high (the worst case); events, counts and the
-whole state must equal the plain version's.
+``--fastrak`` sweeps the pass-1 tile of ``csrc/fastrak_fsm.cu`` (by
+default 1024-16384 samples) on the FasTrak path's decoder inputs (block
+0 of ``chip_smoke.fastrak_scene`` through the path's graph, [1, 2^20]),
+``chip_smoke.fastrak_rows`` at the path's density and back to back at
+[1, 2^20], the decoder bank's [64, 2^14], and the sync stream held high
+(the worst case); events, counts and the whole state must equal the
+plain version's, and it prints the candidates and the chain's frames.
 """
 
 from __future__ import annotations
@@ -41,8 +41,7 @@ from grbaz_tpu_torch.ops.misc import FastrakDecoder  # noqa: E402
 
 GRID = [(chunk, warm) for chunk in (64, 128, 256, 512)
         for warm in (64, 128, 256, 512)]
-FASTRAK_GRID = [(chunk, warm) for chunk in (256, 512, 1024, 2048, 4096)
-                for warm in (640, 1280, 2560)]
+FASTRAK_TILES = [1024, 2048, 4096, 8192, 16384]
 
 
 def scenes(dev):
@@ -82,28 +81,27 @@ def fastrak_scenes(dev):
     return out
 
 
-def fastrak_sweep(dev, grid) -> int:
+def fastrak_sweep(dev, tiles) -> int:
     for label, metric, sync, thr in fastrak_scenes(dev):
         rows = metric.shape[0]
         st = {k: v.reshape(1).expand(rows).contiguous()
               for k, v in FastrakDecoder(device=dev).init_state().items()}
         t = torch.full((1,), thr, device=dev)
         ref = ff.fastrak_fsm_plain(metric, sync, st, t, c.FT_OS)
-        for chunk, warm in grid:
-            got = ff.fastrak_fsm(metric, sync, st, t, c.FT_OS, chunk=chunk,
-                                 warm=warm)
+        for tile in tiles:
+            got = ff.fastrak_fsm(metric, sync, st, t, c.FT_OS, tile=tile)
             torch.cuda.synchronize()
             same = (c.same_bits(got[0], ref[0]) and torch.equal(got[1], ref[1])
                     and all(torch.equal(got[2][k], ref[2][k]) for k in ref[2]))
-            c.check(same, f"{label}, chunk {chunk} warm {warm}: differs "
-                    "from the plain version")
-            repairs = int(ff.fastrak_fsm.last_repairs.sum())
+            c.check(same, f"{label}, tile {tile}: differs from the plain "
+                    "version")
+            cand = int(ff.fastrak_fsm.last_candidates.sum())
+            frames = int(ff.fastrak_fsm.last_frames.sum())
             ms = c.time_ms(lambda i: ff.fastrak_fsm(
-                metric, sync, st, t, c.FT_OS, chunk=chunk, warm=warm), 20)
-            chunks = rows * -(-metric.shape[1] // chunk)
-            print(f"sweep {label} chunk {chunk} warm {warm}: {ms:.4f} ms, "
-                  f"repaired {repairs} of {chunks} chunks, "
-                  f"{int(ref[1].sum())} frames", flush=True)
+                metric, sync, st, t, c.FT_OS, tile=tile), 20)
+            print(f"sweep {label} tile {tile}: {ms:.4f} ms, {cand} "
+                  f"candidates, {frames} chain frames, "
+                  f"{int(ref[1].sum())} passing", flush=True)
     return 0
 
 
@@ -115,11 +113,10 @@ def main() -> int:
     args = sys.argv[1:]
     fastrak = "--fastrak" in args
     args = [a for a in args if a != "--fastrak"]
-    grid = ([tuple(map(int, a.split(","))) for a in args]
-            or (FASTRAK_GRID if fastrak else GRID))
     c.report()
     if fastrak:
-        return fastrak_sweep(dev, grid)
+        return fastrak_sweep(dev, [int(a) for a in args] or FASTRAK_TILES)
+    grid = [tuple(map(int, a.split(","))) for a in args] or GRID
     for label, x, config in scenes(dev):
         rows = x.shape[0]
         cfg = PeakDetector(**config, device="cpu").fsm_config()

@@ -4,6 +4,7 @@
     python3 tools/port_ab_timing.py PARENT . . PARENT
     python3 tools/port_ab_timing.py --bank DIR ...
     python3 tools/port_ab_timing.py --decoders DIR ...
+    python3 tools/port_ab_timing.py --fsm DIR ...
 
 Each argument is the root of a checkout (for example ``git archive`` of
 the parent commit unpacked into a git-ignored directory). In the order
@@ -22,7 +23,11 @@ kernels (Viterbi, ACARS, Manchester, DPLL), holds and times their cases
 per launch (ACARS and Manchester at the decoders path's [1, 2^14] and the
 bank's [64, 2^14] only, the cases every checkout has) and times the
 ViterbiDecoder, ACARS, Manchester and DPLL graphs' steps
-(:func:`decoders`). Every output
+(:func:`decoders`). With ``--fsm``, each process builds only the FSM
+kernels (the FasTrak decoder's K1, the peak FSM) and B3, holds and times
+``chip_smoke``'s K1 and peak FSM cases per call (CUDA events, and the
+device time of the kernel's passes from torch.profiler) and times the
+FasTrak path's step (:func:`fsm`). Every output
 line is prefixed with the checkout it came from; timings compare only
 within one call. Exits non-zero if any checkout's process fails.
 """
@@ -160,6 +165,67 @@ def decoders() -> None:
         steps(key, c.graph_timer(graphs[key], feeds[key], c.DEC_RATE[key]))
 
 
+def fsm() -> None:
+    """K1 and the peak FSM of the checkout in the working directory: the
+    K1 cases of its ``chip_smoke.kernel_cases`` (the FasTrak path's [1,
+    2^20], the decoder bank's [64, 2^14], frames back to back at [1, 2^20],
+    the sync held high) and the peak FSM's at the burst path's and the
+    decoder bank's shapes, each held to its plain version over two
+    chained calls, then timed a call (CUDA events over 20 calls, which
+    read the host's pace where the wrapper's host work outlasts the
+    card's; and the device time of the kernel's passes, torch.profiler);
+    then the FasTrak path's step over its 8 blocks (``graph_timer``, 6 rounds
+    of 8 steps, every output in the checksum)."""
+    import torch
+    import chip_smoke as c
+
+    dev = torch.device("cuda")
+    c.build.build_all(["fastrak_fsm", "peak_fsm", "fir_decimate"])
+    cases = [
+        c.fastrak_case(dev, 7, 1, c.BLOCK, "FasTrak path", gap=c.FT_PATH_GAP),
+        c.fastrak_case(dev, 8, 64, 1 << 14, "decoder bank"),
+        c.fastrak_case(dev, 10, 1, c.BLOCK, "frames back to back",
+                       gap=(1, 200)),
+        c.fastrak_case(dev, 9, 1, c.BLOCK, "sync held high", held=True),
+        c.fsm_case(dev, 3, 1, c.BLOCK, "burst path"),
+        c.fsm_case(dev, 4, 64, 1 << 14, "decoder bank")]
+    c.check_kernels(cases)
+    for k in cases:
+        names = (c.FASTRAK_PASSES if k["name"] == "fastrak_fsm"
+                 else c.FSM_PASSES)
+        us = c.time_ms(k["kernel"], 20) * 1e3
+        passes, every = device_us(k["kernel"], names)
+        print(f"kernel {k['name']} [{k['shape']}] {us:.3f} us a call "
+              f"(CUDA events, 20 calls); device {passes:.3f} us in its "
+              f"passes, {every:.3f} us in every kernel of the call "
+              "(torch.profiler)", flush=True)
+    iq, _ = c.fastrak_scene(dev)
+    feeds = [dict(iq=iq[b * c.BLOCK:(b + 1) * c.BLOCK])
+             for b in range(c.N_BLOCKS)]
+    steps("fastrak_path", c.graph_timer(c.fastrak_graph(dev), feeds,
+                                        c.FT_FS))
+
+
+def device_us(fn, names, iters=20):
+    """Device us per call of ``fn(i)`` (torch.profiler, after warm-up): in
+    the kernels whose names hold one of ``names``, and in every kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total]
+    mine = sum(e.self_device_time_total for e in events
+               if any(k in e.key for k in names))
+    return (mine / iters,
+            sum(e.self_device_time_total for e in events) / iters)
+
+
 def steps(label, run, rounds=6, n=8) -> None:
     ts = [run(n) for _ in range(rounds)]
     print(f"{label} step ms per round (events): "
@@ -167,7 +233,8 @@ def steps(label, run, rounds=6, n=8) -> None:
           + f"; median {statistics.median(ts):.4f} ms", flush=True)
 
 
-JOBS = {"--one": one, "--bank-one": bank_one, "--decoders-one": decoders}
+JOBS = {"--one": one, "--bank-one": bank_one, "--decoders-one": decoders,
+        "--fsm-one": fsm}
 
 
 def run(dirs, job="--one"):
@@ -193,6 +260,8 @@ def main(args) -> int:
         return max(rc for rc, _ in run(args[1:], "--bank-one"))
     if args[:1] == ["--decoders"]:
         return max(rc for rc, _ in run(args[1:], "--decoders-one"))
+    if args[:1] == ["--fsm"]:
+        return max(rc for rc, _ in run(args[1:], "--fsm-one"))
     return max(rc for rc, _ in run(args))
 
 
