@@ -17,20 +17,26 @@
 * :meth:`StreamExecutor.save` / :meth:`StreamExecutor.restore` checkpoint
   the block states, the params and each input's stream position
   (``core.checkpoint``, the JAX package's file layout).
+* While tracing records (``core.trace``), ``dispatch`` and ``fetch``
+  record their parts as spans of the executor's ``stream_id`` and the
+  block's dispatch index ``seq``: ``dispatch.params``, ``dispatch.stage``
+  (the wait for the pinned buffer's previous upload and the copy into
+  it), ``dispatch.upload``, ``dispatch.meta`` and ``dispatch.graph`` (the
+  step's launches), then ``fetch.wait`` (on a CUDA event recorded after
+  those launches) and ``fetch.copy``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
+import itertools
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from grbaz_tpu_torch.convert import params_from_numpy
-from grbaz_tpu_torch.core import checkpoint
+from grbaz_tpu_torch.core import checkpoint, trace
 from grbaz_tpu_torch.core.device import resolve_device, scalar
 from grbaz_tpu_torch.core.graph import Flowgraph
 from grbaz_tpu_torch.core.stream import Stream, StreamMeta
@@ -45,6 +51,7 @@ class InputSpec:
 
 
 _META_FIELDS = ("abs_lo", "abs_hi", "epoch_sec", "epoch_frac", "flags", "seq")
+_STREAM_IDS = itertools.count()
 
 
 class _Uploader:
@@ -59,16 +66,27 @@ class _Uploader:
             self.bufs = [torch.empty(spec.shape, dtype=dtype,
                                      pin_memory=True) for _ in range(2)]
 
-    def upload(self, x: np.ndarray) -> torch.Tensor:
+    def upload(self, x: np.ndarray, traced: bool = False) -> torch.Tensor:
+        span = trace.begin("dispatch.stage") if traced else None
         if self.device.type != "cuda":
-            return torch.from_numpy(np.array(x))
-        i, self.turn = self.turn, 1 - self.turn
-        if self.done[i] is not None:
-            self.done[i].synchronize()  # the copy out of bufs[i] finished
-        self.bufs[i].numpy()[...] = x
-        dev = self.bufs[i].to(self.device, non_blocking=True)
-        self.done[i] = torch.cuda.Event()
-        self.done[i].record()
+            host = np.array(x)
+            if traced:
+                trace.end(span, host.nbytes)
+                span = trace.begin("dispatch.upload")
+            dev = torch.from_numpy(host)
+        else:
+            i, self.turn = self.turn, 1 - self.turn
+            if self.done[i] is not None:
+                self.done[i].synchronize()  # the copy out of bufs[i] finished
+            self.bufs[i].numpy()[...] = x
+            if traced:
+                trace.end(span, x.nbytes)
+                span = trace.begin("dispatch.upload")
+            dev = self.bufs[i].to(self.device, non_blocking=True)
+            self.done[i] = torch.cuda.Event()
+            self.done[i].record()
+        if traced:
+            trace.end(span)
         return dev
 
 
@@ -89,7 +107,10 @@ class StreamExecutor:
         self._states = None
         self._meta = None
         self.params = graph.init_params()  # host-side, caller may mutate
-        self.stats = dict(steps=0, samples_in=0, wall_time=0.0)
+        self.stream_id = next(_STREAM_IDS)
+        self.seq = 0  # the next dispatch's index
+        self._traced = {}  # id(outs) -> (seq, end-of-step event), traced steps
+        self._events = []  # end-of-step events free for reuse
 
     # -- lifecycle ---------------------------------------------------------
     def reset(self):
@@ -97,6 +118,7 @@ class StreamExecutor:
         self._meta = {name: StreamMeta.start(self.inputs[name].sample_rate,
                                              device=self.device)
                       for name in self.graph.in_ports}
+        self._traced.clear()
         return self
 
     # -- stepping ----------------------------------------------------------
@@ -108,6 +130,10 @@ class StreamExecutor:
         chain through the states on the device, so several can be in
         flight (:class:`~grbaz_tpu_torch.core.pump.StreamPump` keeps
         ``inflight`` of them pending)."""
+        seq, self.seq = self.seq, self.seq + 1
+        traced = trace.on()
+        top = trace.begin("executor.dispatch", self.stream_id, seq) \
+            if traced else None
         if self._states is None:
             self.reset()
         if params is not None:
@@ -117,9 +143,11 @@ class StreamExecutor:
         if unknown:
             raise KeyError(f"params for unknown blocks {sorted(unknown)}; "
                            f"valid names: {sorted(names)}")
+        span = trace.begin("dispatch.params") if traced else None
         dev_params = params_from_numpy(self.params, self.device)
+        if traced:
+            trace.end(span)
         streams = {}
-        n_in = 0
         for name, spec in self.inputs.items():
             x = np.asarray(ins[name])
             if x.dtype.name != spec.dtype or tuple(x.shape) != spec.shape:
@@ -127,31 +155,54 @@ class StreamExecutor:
                     f"input {name}: expected {spec.dtype}{spec.shape}, "
                     f"got {x.dtype.name}{x.shape}")
             c = int((counts or {}).get(name, x.shape[0]))
-            n_in += c
+            data = self._uploaders[name].upload(x, traced)
+            span = trace.begin("dispatch.meta") if traced else None
             count = scalar(c, torch.int32, self.device)
             meta = self._meta[name]
-            streams[name] = Stream(self._uploaders[name].upload(x), count,
-                                   meta)
+            streams[name] = Stream(data, count, meta)
             self._meta[name] = meta.advanced(count)
+            if traced:
+                trace.end(span)
+        span = trace.begin("dispatch.graph") if traced else None
         self._states, outs = self._step_fn(self._states, dev_params, streams)
-        self.stats["steps"] += 1
-        self.stats["samples_in"] += n_in
+        if traced:
+            trace.end(span)
+            done = None
+            if self.device.type == "cuda":  # the end of the step's launches
+                done = self._events.pop() if self._events \
+                    else torch.cuda.Event()
+                done.record()
+            if len(self._traced) > 64:  # steps dispatched but never fetched
+                self._traced.clear()
+            self._traced[id(outs)] = (seq, done)
+            trace.end(top)
         return outs
 
     def fetch(self, outs) -> Dict[str, Tuple[np.ndarray, int]]:
         """Wait for a dispatched step's outputs and bring them to the host."""
-        return {name: (s.data.cpu().numpy(), int(s.count))
-                for name, s in outs.items()}
+        if not trace.on():
+            return {name: (s.data.cpu().numpy(), int(s.count))
+                    for name, s in outs.items()}
+        seq, done = self._traced.pop(id(outs), (-1, None))
+        top = trace.begin("executor.fetch", self.stream_id, seq)
+        span = trace.begin("fetch.wait")
+        if done is not None:
+            done.synchronize()
+            self._events.append(done)
+        trace.end(span)
+        span = trace.begin("fetch.copy")
+        got = {name: (s.data.cpu().numpy(), int(s.count))
+               for name, s in outs.items()}
+        trace.end(span, sum(d.nbytes for d, _ in got.values()))
+        trace.end(top)
+        return got
 
     def step(self, ins: Dict[str, np.ndarray],
              counts: Optional[Dict[str, int]] = None,
              params: Optional[Dict[str, Any]] = None
              ) -> Dict[str, Tuple[np.ndarray, int]]:
         """Process one block. Returns {out_port: (np_data, valid_count)}."""
-        t0 = time.monotonic()
-        result = self.fetch(self.dispatch(ins, counts, params))
-        self.stats["wall_time"] += time.monotonic() - t0
-        return result
+        return self.fetch(self.dispatch(ins, counts, params))
 
     # -- checkpoint ----------------------------------------------------------
     def save(self, path: str, extra: Optional[Dict[str, Any]] = None):
@@ -182,22 +233,6 @@ class StreamExecutor:
                 f: params_from_numpy(v, self.device)
                 for f, v in fields.items()})
         return extra
-
-    def throughput(self) -> float:
-        """Host-observed samples/s over all steps so far."""
-        return (self.stats["samples_in"] / self.stats["wall_time"]
-                if self.stats["wall_time"] else 0.0)
-
-    @contextlib.contextmanager
-    def profile(self, log_dir: str):
-        """Capture a torch.profiler trace (chrome format, written to
-        ``log_dir/trace.json``) of the steps run inside the context."""
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=acts) as prof:
-            yield self
-        prof.export_chrome_trace(f"{log_dir}/trace.json")
 
     def run(self, blocks: Iterable[Dict[str, np.ndarray]]):
         """Generator over an iterator of input-block dicts."""

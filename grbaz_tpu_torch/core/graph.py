@@ -5,13 +5,16 @@ The whole DAG becomes one step
     step : (states, params, {in_port: Stream}) -> (states', {out_port: Stream})
 
 that runs the blocks in topological order. PyTorch runs eagerly, so
-``compile`` only fixes the order and returns a plain callable.
+``compile`` only fixes the order and returns a plain callable. While
+tracing records (``core.trace``), each block's ``apply`` is a span
+``block.<name>``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Iterable, List, Tuple
 
+from grbaz_tpu_torch.core import trace
 from grbaz_tpu_torch.core.block import Block
 from grbaz_tpu_torch.core.stream import Stream
 
@@ -102,7 +105,7 @@ class Flowgraph:
 
     def build_step(self) -> Callable:
         """Build the step function for this graph."""
-        order = self._topo_order()
+        plan = [(blk, "block." + blk.name) for blk in self._topo_order()]
         edges = dict(self.edges)
         in_ports = dict(self.in_ports)
         out_ports = dict(self.out_ports)
@@ -113,7 +116,8 @@ class Flowgraph:
             port_feed = {(bname, bport): ext_in[pname]
                          for pname, (bname, bport) in in_ports.items()}
             new_states = dict(states)
-            for blk in order:
+            traced = trace.on()
+            for blk, span_name in plan:
                 ins = []
                 for p in range(blk.n_in):
                     key = (blk.name, p)
@@ -123,7 +127,10 @@ class Flowgraph:
                         ins.append(produced[edges[key]])
                     else:
                         raise ValueError(f"unconnected input {key}")
+                span = trace.begin(span_name) if traced else None
                 st, outs = blk.apply(states[blk.name], params[blk.name], *ins)
+                if traced:
+                    trace.end(span)
                 new_states[blk.name] = st
                 for p, o in enumerate(outs):
                     produced[(blk.name, p)] = o

@@ -19,6 +19,13 @@ returning ``None`` means "no data yet": with ``zero_fill=True`` the pump
 feeds a zero block (underrun counter + 1) so sinks never stall, the
 non_blocker semantic; otherwise the feeder retries. :meth:`stop`
 drains the dispatched steps, and re-raises an error of the runner.
+
+While tracing records (``core.trace``) the pump records, under the
+executor's ``stream_id`` and the block's dispatch index: ``pump.source``
+(the feeder's call into the source; a call that brings no block has
+index -1), ``pump.queue`` (from the feeder offering a block to the queue
+to the runner taking it; ``n`` the blocks left queued behind it),
+``pump.idle`` (the runner waiting on an empty queue) and ``pump.sinks``.
 """
 
 from __future__ import annotations
@@ -32,7 +39,18 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
+from grbaz_tpu_torch.core import trace
+
 log = logging.getLogger(__name__)
+_clock = time.perf_counter
+
+
+class _Stamped:
+    """A queued block with the times of its source call and its put."""
+    __slots__ = ("blk", "t_source", "t_put")
+
+    def __init__(self, blk, t_source: float, t_put: float):
+        self.blk, self.t_source, self.t_put = blk, t_source, t_put
 
 
 class StreamPump:
@@ -41,6 +59,7 @@ class StreamPump:
                  drop: bool = False, zero_fill: bool = False,
                  poll_interval: float = 0.002, inflight: int = 3):
         self.ex = executor
+        self._stream = executor.stream_id
         self.source = source
         self.sinks = dict(sinks)
         self.depth = max(1, int(depth))
@@ -94,11 +113,17 @@ class StreamPump:
     # -- threads ---------------------------------------------------------
     def _feed_loop(self):
         while self._run:
+            t = _clock() if trace.on() else None
             try:
                 blk = self.source()
             except Exception:  # a failing source reads as "no data yet"
                 log.exception("StreamPump source raised")
                 blk = None
+            if t is not None:
+                if blk is None:
+                    trace.add("pump.source", self._stream, -1, t, _clock())
+                else:
+                    blk = _Stamped(blk, t, _clock())
             if blk is None:
                 if self.zero_fill:
                     blk = self._zero_block
@@ -129,16 +154,29 @@ class StreamPump:
             with self._lock:
                 self.blocks_in += 1
 
-    def _deliver(self, pending):
-        outs = self.ex.fetch(pending)
+    def _deliver(self, pend):
+        """Fetch the oldest dispatched step and hand it to the sinks."""
+        traced = trace.on()
+        seq = self.ex.seq - len(pend) if traced else -1
+        outs = self.ex.fetch(pend.popleft())
+        span = trace.begin("pump.sinks", self._stream, seq) if traced else None
         for name, sink in self.sinks.items():
             if name in outs:
                 data, count = outs[name]
                 sink(data, count)
+        if traced:
+            trace.end(span)
         with self._lock:
             self.blocks_out += 1
 
     def _dispatch(self, blk):
+        if type(blk) is _Stamped:  # queued while tracing recorded
+            t, seq = _clock(), self.ex.seq
+            trace.add("pump.source", self._stream, seq, blk.t_source,
+                      blk.t_put)
+            trace.add("pump.queue", self._stream, seq, blk.t_put, t,
+                      self._q.qsize())
+            blk = blk.blk
         if isinstance(blk, tuple):  # (blocks, counts): a partial block
             return self.ex.dispatch(*blk)
         return self.ex.dispatch(blk)
@@ -154,15 +192,20 @@ class StreamPump:
                         break
                     pend.append(self._dispatch(blk))
                 if pend:
-                    self._deliver(pend.popleft())
+                    self._deliver(pend)
                 else:
+                    span = trace.begin("pump.idle", self._stream) \
+                        if trace.on() else None
                     try:
                         blk = self._q.get(timeout=self.poll)
                     except queue.Empty:
-                        continue
-                    pend.append(self._dispatch(blk))
+                        blk = None
+                    if span is not None:
+                        trace.end(span)
+                    if blk is not None:
+                        pend.append(self._dispatch(blk))
             while pend:  # drain in-flight work on stop
-                self._deliver(pend.popleft())
+                self._deliver(pend)
         except BaseException as e:  # handed to stop(), which re-raises it
             self._error = e
             self._run = False

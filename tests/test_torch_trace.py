@@ -1,0 +1,271 @@
+"""The port's tracer (``core/trace.py``) and its spans on the served path:
+the pump, the executor's dispatch and fetch, one span per Block; off by
+default, armed by a profiler session, on the benchmark's host clock."""
+
+import collections
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from grbaz_tpu_torch.core import trace
+from grbaz_tpu_torch.core.executor import InputSpec, StreamExecutor
+from grbaz_tpu_torch.core.pump import StreamPump
+from grbaz_tpu_torch.models.wbfm import WBFMConfig, build_wbfm
+
+FS = 3.2e6
+N = 4096
+BLOCKS = ("channel", "demod", "audio_aa", "resampler", "deemph")
+DISPATCH = ("dispatch.params", "dispatch.stage", "dispatch.upload",
+            "dispatch.meta", "dispatch.graph")
+
+
+def _executor(device="cpu"):
+    fg, _ = build_wbfm(WBFMConfig(block_size=N, center_freq=250e3,
+                                  audio_chain="cascade"), device=device)
+    return StreamExecutor(fg, {"iq": InputSpec((N,), "complex64", FS)},
+                          device=device)
+
+
+def _blocks(k, seed=5):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((k, N)) + 1j * rng.standard_normal((k, N))
+    return [{"iq": b.astype(np.complex64)} for b in x]
+
+
+def _pump_run(ex, blocks, depth=2, inflight=3):
+    feed = list(blocks)
+    got = []
+    pump = StreamPump(ex, lambda: feed.pop(0) if feed else None,
+                      {"audio": lambda d, c: got.append(c)},
+                      depth=depth, inflight=inflight)
+    pump.start()
+    deadline = time.monotonic() + 60
+    while pump.stats()["blocks_out"] < len(blocks) \
+            and time.monotonic() < deadline:
+        time.sleep(0.005)
+    pump.stop()
+    assert pump.stats()["blocks_out"] == len(blocks)
+    return got
+
+
+@pytest.fixture
+def tracing():
+    trace.clear()
+    trace.enable()
+    try:
+        yield
+    finally:
+        trace.disable()
+        trace.clear()
+
+
+def _by_block(spans):
+    out = collections.defaultdict(list)
+    for s in spans:
+        out[(s.stream, s.seq)].append(s)
+    return out
+
+
+def _inside(child, parent):
+    return parent.t0 <= child.t0 <= child.t1 <= parent.t1
+
+
+def test_off_by_default_records_nothing(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("called with tracing off")
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(trace, "begin", refuse)
+    monkeypatch.setattr(trace, "add", refuse)
+    trace.clear()
+    assert not trace.on()
+    _pump_run(_executor(), _blocks(6))
+    assert trace.spans() == []
+
+
+def test_dispatch_splits_into_its_parts_and_blocks(tracing):
+    ex = _executor()
+    _pump_run(ex, _blocks(6))
+    spans = trace.spans()
+    tops = [s for s in spans if s.name == "executor.dispatch"]
+    assert [s.seq for s in tops] == list(range(6))
+    assert {s.stream for s in tops} == {ex.stream_id}
+    per = _by_block(spans)
+    for top in tops:
+        mine = per[(top.stream, top.seq)]
+        kids = [s for s in mine if s.parent == "executor.dispatch"]
+        assert [s.name for s in kids] == list(DISPATCH)
+        assert all(_inside(k, top) for k in kids)
+        assert all(a.t1 <= b.t0 for a, b in zip(kids, kids[1:]))
+        stage = kids[1]
+        assert stage.n == N * 8  # complex64 bytes staged
+        graph = kids[-1]
+        blocks = [s for s in mine if s.parent == "dispatch.graph"]
+        assert [s.name for s in blocks] == [f"block.{b}" for b in BLOCKS]
+        assert all(_inside(b, graph) for b in blocks)
+
+
+def test_fetch_splits_and_blocks_agree(tracing):
+    ex = _executor()
+    _pump_run(ex, _blocks(6))
+    per = _by_block(trace.spans())
+    for seq in range(6):
+        mine = per[(ex.stream_id, seq)]
+        names = collections.Counter(s.name for s in mine)
+        for name in ("executor.dispatch", "executor.fetch", "fetch.wait",
+                     "fetch.copy", "pump.source", "pump.queue", "pump.sinks",
+                     *DISPATCH, *(f"block.{b}" for b in BLOCKS)):
+            assert names[name] == 1, (seq, name)
+        fetch = next(s for s in mine if s.name == "executor.fetch")
+        dispatch = next(s for s in mine if s.name == "executor.dispatch")
+        assert dispatch.t1 <= fetch.t0
+        kids = [s for s in mine if s.parent == "executor.fetch"]
+        assert [s.name for s in kids] == ["fetch.wait", "fetch.copy"]
+        assert all(_inside(k, fetch) for k in kids)
+        quad = N // 8 * 4  # float32 quad of a full block ...
+        audio_max = N * 4
+        assert quad < kids[1].n < quad + audio_max  # ... and the audio
+        sinks = next(s for s in mine if s.name == "pump.sinks")
+        assert fetch.t1 <= sinks.t0
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_pump_queue_one_per_block(tracing, depth):
+    ex = _executor()
+    _pump_run(ex, _blocks(6), depth=depth)
+    spans = trace.spans()
+    queue = [s for s in spans if s.name == "pump.queue"]
+    assert sorted(s.seq for s in queue) == list(range(6))
+    assert all(0 <= s.n <= depth and s.t0 <= s.t1 for s in queue)
+    source = {s.seq: s for s in spans if s.name == "pump.source"
+              and s.seq >= 0}
+    dispatch = {s.seq: s for s in spans if s.name == "executor.dispatch"}
+    for s in queue:  # source call, then the queue, then the dispatch
+        assert source[s.seq].t1 == s.t0 and s.t1 <= dispatch[s.seq].t0
+    assert all(s.parent is None for s in queue)
+
+
+def test_profiler_session_arms_the_tracer():
+    ex = _executor()
+    ins = _blocks(3)
+    trace.clear()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    prof.start()
+    try:
+        assert trace.on()
+        ex.step(ins[0])
+    finally:
+        prof.stop()
+    assert not trace.on()
+    got = trace.spans()
+    assert [s.name for s in got if s.parent == "dispatch.graph"] == [
+        f"block.{b}" for b in BLOCKS]
+    ex.step(ins[1])
+    assert trace.spans() == got
+    keys = {e.key for e in prof.key_averages()}
+    assert {f"block.{b}" for b in BLOCKS} <= keys
+    assert {"executor.dispatch", "executor.fetch", *DISPATCH} <= keys
+    trace.clear()
+
+
+def test_profiler_flag_seen_from_every_thread():
+    """The pump's threads read torch's process-wide flag: a session
+    started on another thread arms them too."""
+    seen = []
+
+    def look():
+        seen.append(trace.on())
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert torch.autograd.profiler._is_profiler_enabled is True
+        t = threading.Thread(target=look)
+        t.start()
+        t.join(timeout=10)
+    assert not t.is_alive()
+    assert seen == [True]
+    assert torch.autograd.profiler._is_profiler_enabled is False
+    look()
+    assert seen == [True, False]
+
+
+def test_dispatch_inside_the_benchmarks_span(tracing):
+    """The benchmark's spans and the program's read one clock."""
+    from radiobench import spans as rb_spans
+
+    ex = _executor()
+    rec = rb_spans.Recorder()
+    rb_spans.wrap_executor(ex, 0, rec)
+    _pump_run(ex, _blocks(6))
+    outer = rec.of("dispatch")
+    inner = [s for s in trace.spans() if s.name == "executor.dispatch"]
+    assert len(outer) == len(inner) == 6
+    for o, i in zip(outer, inner):
+        assert o[3] <= i.t0 <= i.t1 <= o[4]
+    outer = rec.of("fetch")
+    inner = [s for s in trace.spans() if s.name == "executor.fetch"]
+    for o, i in zip(outer, inner):
+        assert o[3] <= i.t0 <= i.t1 <= o[4]
+
+
+def test_tracer_nesting_range_and_bound(tracing, monkeypatch):
+    monkeypatch.setattr(trace, "_buf", collections.deque(maxlen=4))
+    top = trace.begin("a", 7, 3)
+    kid = trace.begin("b")
+    trace.end(kid, 12)
+    trace.end(top)
+    b, a = trace._buf
+    assert a[:4] == ("a", 7, 3, None) and b[:4] == ("b", 7, 3, "a")
+    assert b[6] == 12 and a[4] <= b[4] <= b[5] <= a[5]
+    assert [s.name for s in trace.spans()] == ["a", "b"]
+    assert trace.spans(b[4]) == [trace.Span(*b)]
+    assert trace.spans(a[4], b[4]) == [trace.Span(*a)]
+    # a root drops the frames an exception left open
+    trace.begin("c", 1, 0)
+    trace.begin("d")
+    trace.end(trace.begin("e", 1, 1))
+    assert trace._buf[-1][:4] == ("e", 1, 1, None)
+    assert trace._thread.open == []
+    # spans with no parent stream take -1; the oldest spans drop
+    trace.end(trace.begin("f"))
+    trace.add("g", 2, 5, 1.0, 2.0, 9)
+    assert [s[0] for s in trace._buf] == ["a", "e", "f", "g"]
+    assert trace._buf[2][1:3] == (-1, -1)
+    assert trace.spans(0.5, 1.5) == [trace.Span("g", 2, 5, None, 1.0, 2.0, 9)]
+    trace.clear()
+    assert trace.spans() == []
+
+
+@pytest.mark.cuda
+def test_off_on_the_card_adds_no_event(monkeypatch):
+    """The served path's CUDA events: the uploader's one a step with
+    tracing off, one more (the step's end) with it on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    made = []
+    real = torch.cuda.Event
+
+    def count(*a, **k):
+        made.append(1)
+        return real(*a, **k)
+    ex = _executor("cuda")
+    ins = _blocks(4)
+    ex.step(ins[0])
+    monkeypatch.setattr(torch.cuda, "Event", count)
+    ex.step(ins[1])
+    assert len(made) == 1
+    trace.clear()
+    trace.enable()
+    try:
+        ex.step(ins[2])
+    finally:
+        trace.disable()
+    assert len(made) == 3
+    wait = [s for s in trace.spans() if s.name == "fetch.wait"]
+    assert len(wait) == 1
+    trace.clear()
