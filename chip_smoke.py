@@ -41,7 +41,8 @@ failure of which exits non-zero:
    and the one-call library equivalent where there is one, beside its
    bound and the launch floor (a back-to-back empty kernel); the WBFM
    chains' step times and torch.profiler breakdowns (``chiprun_out/``);
-   the resampler's two forms;
+   the resampler's two forms; the audio tail's two kernels against their
+   plain twins, device and host time a call;
 8. the other BASELINE configurations, each driven through its entry
    points over several blocks, its launches counted like phase 3, its
    first block(s) run again by the port on the CPU and held to the card
@@ -146,8 +147,8 @@ failure of which exits non-zero:
     port's UDPSampleReceiver (its native engine asserted), whose
     ``WireSource`` keeps every read until it holds a 2^20 block and hands
     on the partial last one with its count, through
-    ``StreamPump(drop=True, inflight=3)`` into the cascade chain (B1, B3);
-    no packet dropped, no pump overrun, every block out, the audio
+    ``StreamPump(drop=True, inflight=3)`` into the cascade chain (B1, B3,
+    the audio tail); no packet dropped, no pump overrun, every block out, the audio
     bit-equal to the Flowgraph over the same samples, the tone within 5
     Hz above 40 dB; prints the wall-clock rate, each block's latency (its
     last packet sent to its audio delivered), the card's idle share (a
@@ -290,6 +291,7 @@ from grbaz_tpu_torch.net.borip_server import BorIPServer
 from grbaz_tpu_torch.ops.colour import Colouriser, thermal_gradient
 from grbaz_tpu_torch.ops.detect import Correlator, PeakDetector, RadarDetector
 from grbaz_tpu_torch.ops.cuda import acars_fsm as af
+from grbaz_tpu_torch.ops.cuda import audio_tail as at
 from grbaz_tpu_torch.ops.cuda import build
 from grbaz_tpu_torch.ops.cuda import channel_bank as cb
 from grbaz_tpu_torch.ops.cuda import dpll_walk as dw
@@ -303,7 +305,7 @@ from grbaz_tpu_torch.ops.cuda import vrr_walk as vw
 from grbaz_tpu_torch.ops.cuda import xlating_fir as xf
 from grbaz_tpu_torch.ops.cuda import xlating_fir_ctaps as xc
 from grbaz_tpu_torch.ops.wbfm_frontend import rotated_taps
-from grbaz_tpu_torch.ops.demod import AMDemod, QuadratureDemod
+from grbaz_tpu_torch.ops.demod import AMDemod, FMDeemphasis, QuadratureDemod
 from grbaz_tpu_torch.ops.fec import GLFSRSource, PNBERv, ViterbiDecoder
 from grbaz_tpu_torch.ops.fir import FIRDecimator, FreqXlatingFIRDecimator
 from grbaz_tpu_torch.ops.fsk4 import P25_SYMBOL_RATE
@@ -383,12 +385,24 @@ KERNELS = {  # row -> (wrappers whose launches it counts, source, TPU kernel)
     "dpll_walk": (
         (dw.dpll_walk,), "grbaz_tpu_torch/csrc/dpll_walk.cu",
         "grbaz_tpu/ops/decode.py:118"),
+    # the WBFM audio tail: FractionalResampler's and FMDeemphasis' steps
+    # (XLA ops in the JAX package), one launch each
+    "fractional_resample": (
+        (at.fractional_resample,), "grbaz_tpu_torch/csrc/audio_tail.cu",
+        "grbaz_tpu/ops/resampler.py:294"),
+    "fm_deemphasis": (
+        (at.fm_deemphasis,), "grbaz_tpu_torch/csrc/audio_tail.cu",
+        "grbaz_tpu/ops/demod.py:128"),
 }
 # kernels each path launches; xlating_fir_frame_rtf is the
 # frame-convention entry point of the channelizer kernel, which the JAX
 # package calls only from its tests
-MAIN_PATH_KERNELS = ("xlating_fir_block", "fir_decimate_frame")
-FUSED_PATH_KERNELS = ("xlating_fir_ctaps_block",)
+AUDIO_TAIL_KERNELS = ("fractional_resample", "fm_deemphasis")
+MAIN_PATH_KERNELS = ("xlating_fir_block", "fir_decimate_frame",
+                     *AUDIO_TAIL_KERNELS)
+FUSED_PATH_KERNELS = ("xlating_fir_ctaps_block", *AUDIO_TAIL_KERNELS)
+# rtl_fm's fractional chain
+RTL_FM_KERNELS = ("xlating_fir_block", *AUDIO_TAIL_KERNELS)
 BANK_PATH_KERNELS = ("channel_bank",)
 BURST_PATH_KERNELS = ("peak_fsm",)
 # the device functions of the FSM kernel's three passes, as the profiler
@@ -747,6 +761,7 @@ def kernel_cases(dev):
         fastrak_case(dev, 10, 1, BLOCK, "frames back to back", gap=(1, 200)),
         fastrak_case(dev, 9, 1, BLOCK, "sync held high", held=True),
         vrr_case(dev),
+        *audio_tail_cases(dev),
         *decode_kernel_cases(dev),
     ]
 
@@ -1036,6 +1051,95 @@ def vrr_case(dev):
                 nbytes=8 * n + 4 * blk.capacity + 2 * 4 * 7 + 32,
                 flops=2 * NTAPS_MMSE * int(round(n / AM_RATIO)),
                 after=chain_bound)
+
+
+def audio_tail_cases(dev):
+    """The audio tail's two kernels at the cascade chain's shape: the
+    resampler's float32 block of 16384 at 25/24 (capacity 17478), and the
+    deemphasis over that capacity with the resampler's count. Each check
+    chains two blocks through the kernel and its plain twin: counts,
+    positions, tails and the deemphasis' x_prev equal, outputs and y_prev
+    within 1e-6 of the max."""
+    n = BLOCK // DECIM // DECIM
+    rs = FractionalResampler(n, 25 / 24, dtype=torch.float32, device=dev)
+    de = FMDeemphasis(48e3, device=dev)
+    cap = rs.capacity
+    gen = torch.Generator(device=dev).manual_seed(22)
+    xs = copies(lambda: torch.randn(n, generator=gen, device=dev), 8 * n)
+    audio = copies(lambda: torch.randn(cap, generator=gen, device=dev),
+                   8 * cap)
+    rs0, pr, de0 = rs.init_state(), rs.init_params(), de.init_state()
+    full = torch.tensor(n, dtype=torch.int32, device=dev)
+    # about the resampler's count at 25/24 (16384 * 24 / 25 outputs)
+    n_out = n * 24 // 25
+    counts = [torch.tensor(c, dtype=torch.int32, device=dev)
+              for c in (n_out, n_out + 1)]
+
+    def resample(fn, x, st):
+        return fn(x, st["tail"], full, st["mu_int"], st["mu_frac"],
+                  pr["inc_int"], pr["inc_frac"], cap, rs.taps_table)
+
+    def deemph(fn, x, c, st):
+        return fn(x, c, st["y_prev"], st["x_prev"], *de.b, de.a)
+
+    def held_resample():
+        out = {}
+        for fn in (at.fractional_resample, at.resample_step_plain):
+            st, res = rs0, []
+            for c in range(2):
+                r = resample(fn, xs[c], st)
+                res.append(r)
+                st = dict(tail=r[4], mu_int=r[2], mu_frac=r[3])
+            out[fn] = res
+        kern, plain = out.values()
+        torch.cuda.synchronize()
+        for g, p in zip(kern, plain):
+            check(all(torch.equal(g[i], p[i]) for i in range(1, 5)),
+                  "fractional_resample: counts, positions or tails differ")
+        print(f"fractional_resample [{n} f32 at 25/24, capacity {cap}]: "
+              f"{int(kern[0][1])} and {int(kern[1][1])} outputs, counts, "
+              "mu_int, mu_frac and tails equal to the plain twin's")
+        return (torch.cat([g[0] for g in kern]),
+                torch.cat([p[0] for p in plain]))
+
+    def held_deemph():
+        out = {}
+        for fn in (at.fm_deemphasis, at.deemphasis_plain):
+            st, res = de0, []
+            for c in range(2):
+                r = deemph(fn, audio[c], counts[c], st)
+                res.append(r)
+                st = dict(y_prev=r[1], x_prev=r[2])
+            out[fn] = res
+        kern, plain = out.values()
+        torch.cuda.synchronize()
+        for g, p in zip(kern, plain):
+            check(torch.equal(g[2], p[2]), "fm_deemphasis: x_prev differs")
+        print(f"fm_deemphasis [{cap} f32, counts "
+              f"{[int(c) for c in counts]}]: x_prev equal to the plain "
+              "twin's")
+        return (torch.cat([torch.cat([g[0], g[1].reshape(1)]) for g in kern]),
+                torch.cat([torch.cat([p[0], p[1].reshape(1)])
+                           for p in plain]))
+
+    return [
+        dict(name="fractional_resample", shape=f"cascade, {n} f32 at 25/24",
+             kernel=lambda i: resample(at.fractional_resample,
+                                       xs[i % len(xs)], rs0)[0],
+             plain=lambda i: resample(at.resample_step_plain,
+                                      xs[i % len(xs)], rs0)[0],
+             check=held_resample, rel=1e-6, library=None,
+             nbytes=4 * n + 4 * cap + 4 * rs.taps_table.numel(),
+             flops=2 * NTAPS_MMSE * n_out),
+        dict(name="fm_deemphasis", shape=f"cascade, {cap} f32",
+             kernel=lambda i: deemph(at.fm_deemphasis,
+                                     audio[i % len(audio)], counts[0],
+                                     de0)[0],
+             plain=lambda i: deemph(at.deemphasis_plain,
+                                    audio[i % len(audio)], counts[0],
+                                    de0)[0],
+             check=held_deemph, rel=1e-6, library=None,
+             nbytes=8 * cap, flops=5 * cap)]
 
 
 def bank_case(dev, gen, h_chan):
@@ -1726,7 +1830,7 @@ def config1_path(dev):
          + 0.003 * torch.view_as_complex(torch.randn(
              n, 2, generator=gen, device=dev)))
     xs = [x[b * BLOCK:(b + 1) * BLOCK] for b in range(PATH_BLOCKS)]
-    outs, _ = counted("config 1", (), PATH_BLOCKS,
+    outs, _ = counted("config 1", ("fractional_resample",), PATH_BLOCKS,
                       lambda: run_graph(graph(dev), xs, 250e3))
     y, c = outs[-1]["out"]
     mag = y[: int(c)].abs()
@@ -4347,7 +4451,7 @@ def ingest_path(dev):
     """The main path fed from the wire: an FM station (``synth_fm``)
     quantized to BorIP ishort and sent at the RTL rate over loopback UDP
     for INGEST_SECONDS, through the native receiver and the pump into the
-    cascade chain on the card (B1, B3). Checks no drop and no overrun,
+    cascade chain on the card (B1, B3, the audio tail). Checks no drop and no overrun,
     every block out, audio bit-equal to the Flowgraph run over the same
     samples, the tone; prints the ingest rate, the latency and the card's
     idle share, then the unpaced sweep. Returns the kernels' launches of
@@ -4591,7 +4695,7 @@ def apps_phase(dev):
         card_run, cpu_run = pair(
             "rtl_fm --synth", rtl_fm.main,
             ["--synth", "--seconds", str(APP_SECONDS), "-o", "{a.wav}"],
-            ["a.wav"], ("xlating_fir_block",), rtl_blocks)
+            ["a.wav"], RTL_FM_KERNELS, rtl_blocks)
         add(launch_counts())
         check(card_run[0] == cpu_run[0], "rtl_fm --synth stdout")
         same_wav(card_run[1]["a.wav"], cpu_run[1]["a.wav"])
@@ -4619,7 +4723,7 @@ def apps_phase(dev):
                 "rtl_fm --borip", rtl_fm.main,
                 ["--borip", f"127.0.0.1:{srv.port}", "--freq",
                  str(STATION_HZ), "--seconds", str(APP_SECONDS), "-o",
-                 "{a.wav}"], ["a.wav"], ("xlating_fir_block",), rtl_blocks)
+                 "{a.wav}"], ["a.wav"], RTL_FM_KERNELS, rtl_blocks)
             add(launch_counts())
         finally:
             borip_client.RemoteDevice = orig_remote
@@ -4640,7 +4744,7 @@ def apps_phase(dev):
         card_run, cpu_run = pair(
             "rtl_fm --input", rtl_fm.main,
             ["--input", cap, "--fmt", "c64", "--freq", str(STATION_HZ),
-             "-o", "{a.wav}"], ["a.wav"], ("xlating_fir_block",), rtl_blocks)
+             "-o", "{a.wav}"], ["a.wav"], RTL_FM_KERNELS, rtl_blocks)
         add(launch_counts())
         check(card_run[0] == cpu_run[0], "rtl_fm --input stdout")
         # the file source zero-fills its last read past the capture's end:
@@ -5004,7 +5108,7 @@ def rtl_fm_borip(dev, cap, tmp):
     """``rtl_fm --borip`` against the port's BorIPServer serving the
     capture through the RTL driver (``rtl transport=file ...``), on the
     card and with ``--device cpu``: the WAVs within APP_LSB, the tone.
-    Returns B1's launches."""
+    Returns the kernels' launches."""
     hint = f"rtl transport=file path={cap} rate={int(FS)} tuner={RTL_TUNER}"
     srv = BorIPServer(("127.0.0.1", 0), default_device=hint)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
@@ -5019,8 +5123,8 @@ def rtl_fm_borip(dev, cap, tmp):
             ["--borip", f"127.0.0.1:{srv.port}", "--freq", str(STATION_HZ),
              "--seconds", str(RTL_APP_SECONDS), "--block",
              str(RTL_APP_BLOCK), "-o", "{a.wav}"], tmp, ["a.wav"],
-            ("xlating_fir_block",), n_blocks)
-        launches = launch_counts()["xlating_fir_block"]
+            RTL_FM_KERNELS, n_blocks)
+        launches = launch_counts()
     finally:
         borip_client.RemoteDevice = orig_remote
         srv.shutdown()
@@ -5040,7 +5144,7 @@ def rtl_path(dev):
     """The RTL-FM equivalent fed by the port's RTL2832 driver: the main
     path's station quantized to u8 IQ in a capture of RTL_FULL_BLOCKS
     blocks and a half, (a) read by RTLSource's file transport into the
-    pump and the cascade chain on the card (B1, B3): no overflow, every
+    pump and the cascade chain on the card (B1, B3, the audio tail): no overflow, every
     read equal to the capture, the audio bit-equal to the Flowgraph over
     it, blocks 0-1 against the CPU, the tone, the rate, latency and idle
     share; (b) ``rtl_fm --borip`` against the port's BorIPServer opening
@@ -5100,7 +5204,8 @@ def rtl_path(dev):
               f"of {prof['wall_s'] * 1e3:.3f} ms wall; card busy "
               f"{100 * busy:.3f}%, idle {100 * (1 - busy):.3f}% ({card()})")
 
-        launches["xlating_fir_block"] += rtl_fm_borip(dev, cap, tmp)
+        for k, v in rtl_fm_borip(dev, cap, tmp).items():
+            launches[k] += v
 
         run, got = counted("rtl path (c)", MAIN_PATH_KERNELS, len(counts),
                            lambda: tcp_run(ex, x))
@@ -5163,8 +5268,8 @@ def chain_timing(dev, iq, cfg, label, rounds=6, steps=20):
     reads the audio only, so the step is the chain and one sum."""
     xs = [iq[b * BLOCK:(b + 1) * BLOCK] for b in range(N_BLOCKS)]
     runs = {b: graph_timer(build_wbfm(dataclasses.replace(
-        cfg, chan_backend=b, fused_backend=b), device=dev)[0], xs, FS,
-        ports=("audio",)) for b in ("auto", "plain")}
+        cfg, chan_backend=b, fused_backend=b),
+        device=dev)[0], xs, FS, ports=("audio",)) for b in ("auto", "plain")}
     times = {b: [] for b in runs}
     for r in range(rounds):
         for b in (("auto", "plain") if r % 2 == 0 else ("plain", "auto")):
@@ -5194,6 +5299,51 @@ def resampler_timing(dev):
           f"(the block's), rational form with its guard {rat:.4f} ms")
 
 
+def audio_tail_timing(dev, calls=200):
+    """The audio tail's two kernels against their plain twins at the WBFM
+    chains' shapes (the resampler's float32 input of a 2^20-sample block:
+    16384 at 25/24 in the cascade, 131072 at 8.33 in the fractional
+    chain; the deemphasis over the resampler's capacity): device ms a
+    call (CUDA events behind a sleep), the bytes' bound, and the host's
+    us a call (``time.perf_counter`` over ``calls`` calls, no sync
+    inside), which is what the step pays."""
+    for n, ratio, what in ((BLOCK // DECIM // DECIM, 25 / 24, "cascade"),
+                           (BLOCK // DECIM, 8.333333333333334,
+                            "fractional")):
+        rs = FractionalResampler(n, ratio, dtype=torch.float32, device=dev)
+        de = FMDeemphasis(48e3, device=dev)
+        st, pr, ds = rs.init_state(), rs.init_params(), de.init_state()
+        xs = copies(lambda: torch.randn(n, device=dev), 4 * n)
+        audio = torch.randn(rs.capacity, device=dev)
+        c = torch.tensor(n, dtype=torch.int32, device=dev)
+        ca = torch.tensor(rs.capacity - 1, dtype=torch.int32, device=dev)
+        rs_args = (st["tail"], c, st["mu_int"], st["mu_frac"],
+                   pr["inc_int"], pr["inc_frac"], rs.capacity, rs.taps_table)
+        de_args = (ca, ds["y_prev"], ds["x_prev"], *de.b, de.a)
+        cases = (
+            ("fractional_resample", n * 4 + rs.capacity * 4 + 129 * 32,
+             lambda i: at.fractional_resample(xs[i % len(xs)], *rs_args),
+             lambda i: at.resample_step_plain(xs[i % len(xs)], *rs_args)),
+            ("fm_deemphasis", 8 * rs.capacity,
+             lambda i: at.fm_deemphasis(audio, *de_args),
+             lambda i: at.deemphasis_plain(audio, *de_args)))
+        for name, nbytes, kern, plain in cases:
+            ms, plain_ms = time_ms(kern, calls), time_ms(plain, 50)
+            host = []
+            for fn in (kern, plain):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(calls):
+                    fn(i)
+                host.append((time.perf_counter() - t0) / calls * 1e6)
+                torch.cuda.synchronize()
+            b_ms, b_by = bound_ms(nbytes, 0)
+            print(f"time {name} [{what}, {n} in, {rs.capacity} out]: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} "
+                  f"ms ({b_by}); host us a call: kernel {host[0]:.1f}, "
+                  f"plain {host[1]:.1f} ({card()})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5214,7 +5364,7 @@ def main() -> int:
     count0_phase(dev, iq)
     fused_launches = fused_path(dev, iq)
     for name in FUSED_PATH_KERNELS:
-        launches[name] = fused_launches[name]
+        launches[name] += fused_launches[name]
     pump_phase(dev)
 
     floor_ms = time_ms(lambda i: torch.cuda._sleep(0), 200)
@@ -5238,6 +5388,7 @@ def main() -> int:
     chain_timing(dev, iq, WBFMConfig(block_size=BLOCK, fused=True,
                                      center_freq=STATION_HZ), "fused_chain")
     resampler_timing(dev)
+    audio_tail_timing(dev)
     # the other configurations after the WBFM chains' timing: their
     # profiled runs then cannot touch the chains' step times
     config1_path(dev)

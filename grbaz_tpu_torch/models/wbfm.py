@@ -158,17 +158,25 @@ class WBFMConfig:
     # fused channelizer + squelch + discriminator block (WBFMFrontend)
     fused: bool = False
     # WBFMFrontend backend: 'auto' = the rotated-taps CUDA kernel on the
-    # card, its plain PyTorch version on the CPU; 'plain' or 'kernel'
+    # card, its plain PyTorch version on the CPU; 'plain' or 'kernel'.
+    # The fused chain's resampler and deemphasis follow it
     fused_backend: str = "auto"
     # 'fractional' = one MMSE resampler at the quad rate; 'cascade' =
     # anti-alias FIR decimation, then the resampler for the residual
     audio_chain: str = "fractional"
     # cascade integer pre-decimation factor; None = floor(quad/audio)
     audio_aa_decim: Optional[int] = None
-    # channelizer and anti-alias FIR backend: 'auto' = the CUDA kernels
-    # on the card, the plain PyTorch versions on the CPU; 'plain' or
-    # 'kernel' to force one
+    # channelizer, anti-alias FIR, resampler and deemphasis backend:
+    # 'auto' = the CUDA kernels on the card, the plain PyTorch versions
+    # on the CPU; 'plain' or 'kernel' to force one
     chan_backend: str = "auto"
+
+
+def _tail_backend(backend: str) -> str:
+    # the audio tail's blocks refuse 'kernel' without a card; the chain's
+    # 'kernel' runs the other blocks' wrappers, which take their plain
+    # twins on the CPU, so the tail takes 'auto' there
+    return "plain" if backend == "plain" else "auto"
 
 
 def build_wbfm(cfg: WBFMConfig, device="cuda"):
@@ -189,6 +197,7 @@ def build_wbfm(cfg: WBFMConfig, device="cuda"):
         raise ValueError("block_size must be a multiple of decim")
     fg = Flowgraph("wbfm")
     if cfg.fused:
+        tail = _tail_backend(cfg.fused_backend)
         front = WBFMFrontend(
             low_pass_taps(1.0, fs, cfg.channel_width / 2 + cfg.transition / 2,
                           cfg.transition),
@@ -199,9 +208,9 @@ def build_wbfm(cfg: WBFMConfig, device="cuda"):
         resamp = FractionalResampler(cfg.block_size // decim,
                                      quad / cfg.audio_rate,
                                      dtype=torch.float32, name="resampler",
-                                     device=device)
+                                     backend=tail, device=device)
         deemph = FMDeemphasis(cfg.audio_rate, cfg.deemph_tau, name="deemph",
-                              device=device)
+                              device=device, backend=tail)
         fg.input("iq", front)
         fg.chain(front, resamp, deemph)
         fg.output("audio", deemph)
@@ -214,8 +223,9 @@ def build_wbfm(cfg: WBFMConfig, device="cuda"):
         rotate_taps=cfg.rotate_taps, backend=cfg.chan_backend, device=device)
     demod = QuadratureDemod(quad / (2 * np.pi * cfg.max_deviation),
                             name="demod", device=device)
+    tail = _tail_backend(cfg.chan_backend)
     deemph = FMDeemphasis(cfg.audio_rate, cfg.deemph_tau, name="deemph",
-                          device=device)
+                          device=device, backend=tail)
     fg.input("iq", chan)
     handles = dict(channel=chan)
 
@@ -234,14 +244,14 @@ def build_wbfm(cfg: WBFMConfig, device="cuda"):
         resamp = FractionalResampler(cfg.block_size // decim // d2,
                                      quad / d2 / cfg.audio_rate,
                                      dtype=torch.float32, name="resampler",
-                                     device=device)
+                                     backend=tail, device=device)
         audio_stages = [aa, resamp]
         handles["audio_aa"] = aa
     else:
         resamp = FractionalResampler(cfg.block_size // decim,
                                      quad / cfg.audio_rate,
                                      dtype=torch.float32, name="resampler",
-                                     device=device)
+                                     backend=tail, device=device)
         audio_stages = [resamp]
     handles["resampler"] = resamp
 

@@ -14,6 +14,7 @@ import torch
 from grbaz_tpu_torch.core.block import Block
 from grbaz_tpu_torch.core.device import resolve_device, scalar
 from grbaz_tpu_torch.core.stream import Stream
+from grbaz_tpu_torch.ops.fir import _check_backend, _kernel_arm
 from grbaz_tpu_torch.ops.iir import (onepole_lowpass, onepole_scan,
                                     state_at_count)
 
@@ -80,14 +81,42 @@ class PowerSquelch(Block):
         return dict(avg=avg_last), (x.like(y, count=x.count),)
 
 
+def deemphasis_plain(x: torch.Tensor, count: torch.Tensor,
+                     y_prev: torch.Tensor, x_prev: torch.Tensor, b0: float,
+                     b1: float, a: float):
+    """:class:`FMDeemphasis` over one count-prefix block ``x`` [n]: the
+    feed-forward ``b0*x[n] + b1*x[n-1]`` (``x[-1] = x_prev``), then the
+    one-pole recurrence from ``y_prev``. Returns ``(y, new_y_prev,
+    new_x_prev)``; the plain twin of the CUDA kernel
+    ``ops/cuda/audio_tail.fm_deemphasis``."""
+    xd = x.to(torch.float32)
+    x_sh = torch.cat([x_prev.reshape(1), xd[:-1]])
+    ff = b0 * xd + b1 * x_sh
+    # causal recurrence over a count-prefix stream: the valid prefix
+    # is exact, the carried state is y[count-1], and the invalid tail
+    # is overwritten with it
+    y_raw = onepole_scan(ff, a, y_prev)
+    y_last = state_at_count(y_raw, count, y_prev)
+    valid = torch.arange(xd.shape[0], dtype=torch.int32,
+                         device=xd.device) < count
+    y = torch.where(valid, y_raw, y_last)
+    return y, y_last, state_at_count(xd, count, x_prev)
+
+
 class FMDeemphasis(Block):
     """Single-pole IIR deemphasis ``y[n] = b0*x[n] + b1*x[n-1] + a*y[n-1]``:
     the bilinear-transformed RC network with time constant ``tau`` at
-    ``sample_rate`` (75 us US / 50 us EU)."""
+    ``sample_rate`` (75 us US / 50 us EU).
+
+    ``backend``: 'auto' runs the block as one launch of the CUDA kernel
+    (``ops/cuda/audio_tail.fm_deemphasis``) on the card and
+    :func:`deemphasis_plain` on the CPU; 'plain' always runs the plain
+    version; 'kernel' always the kernel (it raises without a card)."""
 
     def __init__(self, sample_rate: float, tau: float = 75e-6, name=None,
-                 device="cuda"):
+                 device="cuda", backend: str = "auto"):
         super().__init__(name)
+        self.backend = _check_backend(backend)
         self.device = resolve_device(device)
         w_c = 1.0 / tau
         w_ca = 2.0 * sample_rate * math.tan(w_c / (2.0 * sample_rate))
@@ -103,18 +132,14 @@ class FMDeemphasis(Block):
                     x_prev=scalar(0.0, torch.float32, self.device))
 
     def apply(self, state, params, x: Stream):
-        xd = x.data.to(torch.float32)
-        x_sh = torch.cat([state["x_prev"].reshape(1), xd[:-1]])
-        ff = self.b[0] * xd + self.b[1] * x_sh
-        # causal recurrence over a count-prefix stream: the valid prefix
-        # is exact, the carried state is y[count-1], and the invalid tail
-        # is overwritten with it
-        y_raw = onepole_scan(ff, self.a, state["y_prev"])
-        y_last = state_at_count(y_raw, x.count, state["y_prev"])
-        y = torch.where(x.valid_mask(), y_raw, y_last)
-        new_state = dict(y_prev=y_last,
-                         x_prev=state_at_count(xd, x.count, state["x_prev"]))
-        return new_state, (x.like(y, count=x.count),)
+        run = deemphasis_plain
+        if _kernel_arm(self.backend, self.device):
+            from grbaz_tpu_torch.ops.cuda.audio_tail import \
+                fm_deemphasis_kernel as run
+        y, y_prev, x_prev = run(x.data.to(torch.float32), x.count,
+                                state["y_prev"], state["x_prev"], self.b[0],
+                                self.b[1], self.a)
+        return dict(y_prev=y_prev, x_prev=x_prev), (x.like(y, count=x.count),)
 
 
 class AMDemod(Block):

@@ -222,6 +222,13 @@ def _check_backend(backend: str) -> str:
     return backend
 
 
+def _kernel_arm(backend: str, device: torch.device) -> bool:
+    """A block's kernel arm runs under 'kernel', and under 'auto' on the
+    card."""
+    return backend == "kernel" or (backend == "auto"
+                                   and device.type == "cuda")
+
+
 class FIRDecimator(Block):
     """Decimating FIR with carried filter tail. decim=1 gives a plain FIR.
 
@@ -330,9 +337,7 @@ class FreqXlatingFIRDecimator(Block):
         return dict(lo_inc=exact.freq_to_turns_u32(-center_freq, sample_rate))
 
     def _use_kernel(self) -> bool:
-        if self.rotate_taps or self.backend == "plain":
-            return False
-        return self.backend == "kernel" or self.device.type == "cuda"
+        return not self.rotate_taps and _kernel_arm(self.backend, self.device)
 
     def _tail_offsets(self, n: int) -> torch.Tensor:
         """int64 ``[-tl .. -1, n-m .. n-1]`` (m = min(n, tl)) on the

@@ -37,6 +37,7 @@ from grbaz_tpu_torch.core.block import Block
 from grbaz_tpu_torch.core.device import U32_MASK, resolve_device, scalar, take
 from grbaz_tpu_torch.core.stream import Stream, stream_flags
 from grbaz_tpu_torch.ops import exact
+from grbaz_tpu_torch.ops.fir import _check_backend, _kernel_arm
 from grbaz_tpu_torch.ops.mmse import NSTEPS_LOG2, NTAPS, TAPS_TABLE
 
 HIST = NTAPS - 1
@@ -167,16 +168,42 @@ def resample_block_rational(frame: torch.Tensor, mu_int: torch.Tensor,
     return torch.where(ok, fast, slow), n_out, mu_i, mu_f
 
 
+def resample_step_plain(x: torch.Tensor, tail: torch.Tensor,
+                        count: torch.Tensor, mu_int: torch.Tensor,
+                        mu_frac: torch.Tensor, inc_int: torch.Tensor,
+                        inc_frac: torch.Tensor, out_capacity: int,
+                        taps_table: torch.Tensor):
+    """One step of :class:`FractionalResampler` over the block ``x`` [n]
+    with its carried ``tail`` [HIST] and valid ``count``: the generic
+    form over ``concat(tail, x)``. Returns ``(y[out_capacity], n_out,
+    new_mu_int, new_mu_frac, new_tail)``; the plain twin of the CUDA
+    kernel ``ops/cuda/audio_tail.fractional_resample``."""
+    frame = torch.cat([tail, x])
+    n_valid = torch.clamp(count, max=x.shape[0])
+    y, n_out, mu_i, mu_f = resample_block(frame, mu_int, mu_frac, inc_int,
+                                          inc_frac, out_capacity, taps_table,
+                                          n_valid=n_valid)
+    return y, n_out, mu_i, mu_f, frame[-HIST:]
+
+
 class FractionalResampler(Block):
     """Streaming resampler block (generic gather form); the ratio lives
     in ``params`` (retunable). ``min_ratio`` bounds the static output
     capacity, ``capacity = ceil(block_size / min_ratio) + 1``; by default
-    the ratio may retune down to 90% of the construction ratio."""
+    the ratio may retune down to 90% of the construction ratio.
+
+    ``backend``: 'auto' runs the step as one launch of the CUDA kernel
+    (``ops/cuda/audio_tail.fractional_resample``) on the card and
+    :func:`resample_step_plain` on the CPU; 'plain' always runs the
+    plain step; 'kernel' always the kernel (it raises without a card).
+    Both arms carry the same state."""
 
     def __init__(self, block_size: int, ratio: float, *,
                  min_ratio: float = None, dtype=torch.complex64,
-                 phase_shift: float = 0.0, name=None, device="cuda"):
+                 phase_shift: float = 0.0, name=None, backend: str = "auto",
+                 device="cuda"):
         super().__init__(name)
+        self.backend = _check_backend(backend)
         self.device = resolve_device(device)
         self.block_size = int(block_size)
         self.dtype = dtype
@@ -215,13 +242,15 @@ class FractionalResampler(Block):
         if x.data.shape[0] != self.block_size:
             raise ValueError(f"{self.name}: expected block of "
                              f"{self.block_size}, got {x.data.shape[0]}")
-        frame = torch.cat([state["tail"], x.data])
-        n_valid = torch.clamp(x.count, max=self.block_size)
-        y, n_out, mu_int, mu_frac = resample_block(
-            frame, state["mu_int"], state["mu_frac"], params["inc_int"],
-            params["inc_frac"], self.capacity, self.taps_table,
-            n_valid=n_valid)
-        new_state = dict(tail=frame[-HIST:], mu_int=mu_int, mu_frac=mu_frac)
+        step = resample_step_plain
+        if _kernel_arm(self.backend, self.device):
+            from grbaz_tpu_torch.ops.cuda.audio_tail import \
+                fractional_resample_kernel as step
+        y, n_out, mu_int, mu_frac, tail = step(
+            x.data, state["tail"], x.count, state["mu_int"],
+            state["mu_frac"], params["inc_int"], params["inc_frac"],
+            self.capacity, self.taps_table)
+        new_state = dict(tail=tail, mu_int=mu_int, mu_frac=mu_frac)
         out = x.like(y, count=n_out, rate_scale=1.0 / self.ratio0)
         return new_state, (out,)
 

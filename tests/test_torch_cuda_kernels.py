@@ -18,11 +18,14 @@ from grbaz_tpu_torch.core.executor import InputSpec, StreamExecutor
 from grbaz_tpu_torch.core.stream import Stream
 from grbaz_tpu_torch.models import wbfm
 from grbaz_tpu_torch.ops import exact, fir
+from grbaz_tpu_torch.ops.cuda import audio_tail as at
 from grbaz_tpu_torch.ops.cuda import channel_bank as cb
 from grbaz_tpu_torch.ops.cuda import fir_decimate as fd
 from grbaz_tpu_torch.ops.cuda import tiling
 from grbaz_tpu_torch.ops.cuda import xlating_fir as xf
 from grbaz_tpu_torch.ops.cuda import xlating_fir_ctaps as xc
+from grbaz_tpu_torch.ops.demod import FMDeemphasis
+from grbaz_tpu_torch.ops.resampler import FractionalResampler
 
 pytestmark = pytest.mark.cuda
 
@@ -157,8 +160,11 @@ def test_channel_block_kernel_arm_equals_plain_arm(dev, n):
 def test_cascade_checkpoint_from_the_card_resumes_on_the_cpu(dev, tmp_path):
     """The cascade chain's state saved on the card after two blocks and a
     retune, loaded into the chain on the CPU: its next blocks equal the
-    card's own continuation at the chain bar (1e-4 of the max)."""
+    card's own continuation at the chain bar (1e-4 of the max). The card
+    runs the audio tail on its kernels (each launched once a step); the
+    resampler's positions continue on the CPU bit for bit."""
     from grbaz_tpu_torch.core import checkpoint
+    launches = (at.fractional_resample.launches, at.fm_deemphasis.launches)
     cfg = wbfm.WBFMConfig(block_size=1 << 14, audio_chain="cascade",
                           center_freq=250e3)
     gen = np.random.default_rng(12)
@@ -168,6 +174,8 @@ def test_cascade_checkpoint_from_the_card_resumes_on_the_cpu(dev, tmp_path):
     states, params = fg.init_states(), fg.init_params()
     for x in blocks[:2]:
         states, _ = step(states, params, {"iq": Stream.full(x)})
+    assert (at.fractional_resample.launches - launches[0],
+            at.fm_deemphasis.launches - launches[1]) == (2, 2)
     retune = fir.FreqXlatingFIRDecimator.freq_params(-431.7e3, FS)
     path = str(tmp_path / "cascade.npz")
     checkpoint.save_state(path, states)
@@ -186,6 +194,9 @@ def test_cascade_checkpoint_from_the_card_resumes_on_the_cpu(dev, tmp_path):
             c = int(ref.count)
             assert int(got.count) == c
             assert _err(got.data[:c], ref.data[:c]) < 1e-4, port
+        for k in ("mu_int", "mu_frac"):
+            assert torch.equal(states["resampler"][k].cpu(),
+                               st_cpu["resampler"][k]), k
 
 
 @pytest.mark.parametrize("n,decim", [(1 << 20, 8), (8192 + 24, 8), (1000, 4),
@@ -1032,6 +1043,199 @@ def test_vrr_walk_wrapper_counts_launches_and_rejects_bad_input(dev):
         vw.vrr_walk_kernel(x[:4], *args)
     assert vw.vrr_walk.launches == before + 1
     assert 0.1 < vw.chain_step_ns(1 << 16) < 1000.0
+
+
+# ---------------------------------------------------------------------------
+# the WBFM audio tail (csrc/audio_tail.cu): the fractional resampler's step
+# and the FM deemphasis, one launch each
+# ---------------------------------------------------------------------------
+
+def _tail_block(gen, n, dtype):
+    x = gen.standard_normal((n, 2)).astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(
+        x[:, 0] if dtype == torch.float32 else x[:, 0] + 1j * x[:, 1]))
+
+
+def _rs_params(ratio, dev):
+    p = FractionalResampler.ratio_params(ratio)
+    return dict(inc_int=torch.tensor(int(p["inc_int"]), dtype=torch.int32,
+                                      device=dev),
+                inc_frac=torch.tensor(int(p["inc_frac"]), device=dev))
+
+
+def _resample_against_plain(dev, dtype, n, ratio, counts, retunes=(),
+                            start=None):
+    """Chained blocks through the kernel and the plain step: counts,
+    positions and tails equal, samples within 1e-6 of the largest."""
+    gen = np.random.default_rng(n + len(counts))
+    blk = FractionalResampler(n, ratio, dtype=dtype, device="cpu")
+    st_p = blk.init_state()
+    if start is not None:
+        st_p["mu_int"] = torch.tensor(start[0], dtype=torch.int32)
+        st_p["mu_frac"] = torch.tensor(start[1], dtype=torch.int64)
+    st_k = {k: v.to(dev) for k, v in st_p.items()}
+    taps = blk.taps_table
+    pr = _rs_params(ratio, "cpu")
+    for b, c in enumerate(counts):
+        if b in dict(retunes):
+            pr = _rs_params(dict(retunes)[b], "cpu")
+        x = _tail_block(gen, n, dtype)
+        cnt = torch.tensor(c, dtype=torch.int32)
+        ref = at.fractional_resample(
+            x, st_p["tail"], cnt, st_p["mu_int"], st_p["mu_frac"],
+            pr["inc_int"], pr["inc_frac"], blk.capacity, taps)
+        got = at.fractional_resample(
+            x.to(dev), st_k["tail"], cnt.to(dev), st_k["mu_int"],
+            st_k["mu_frac"], pr["inc_int"].to(dev), pr["inc_frac"].to(dev),
+            blk.capacity, taps.to(dev))
+        for i, what in ((1, "count"), (2, "mu_int"), (3, "mu_frac"),
+                        (4, "tail")):
+            assert got[i].dtype == ref[i].dtype, what
+            assert torch.equal(got[i].cpu(), ref[i]), (b, what)
+        scale = float(ref[0].abs().max())
+        assert float((got[0].cpu() - ref[0]).abs().max()) <= 1e-6 * scale, b
+        assert not bool(got[0][int(ref[1]):].cpu().abs().any()), b
+        st_p = dict(tail=ref[4], mu_int=ref[2], mu_frac=ref[3])
+        st_k = dict(tail=got[4], mu_int=got[2], mu_frac=got[3])
+
+
+@pytest.mark.parametrize("n", [16384, 131072])
+@pytest.mark.parametrize("ratio", [25 / 24, 8.333333333333334, 1.7, 0.8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_fractional_resample_kernel_matches_plain(dev, dtype, ratio, n):
+    """8 chained blocks: full, partial and zero-count blocks, a ppb-scale
+    retune and one down to the block's min_ratio (its capacity filled
+    after the zero-count block's backlog)."""
+    min_ratio = FractionalResampler(n, ratio, device="cpu").min_ratio
+    _resample_against_plain(dev, dtype, n, ratio,
+                            [n, n, n - 333, 0, n, n, n, n],
+                            retunes=((4, ratio * (1 + 3e-7)),
+                                     (6, min_ratio)))
+
+
+@pytest.mark.parametrize("start", [(-2, 0), (0, 2 ** 32 - 1),
+                                   (7, 2 ** 32 - 1), (16383, 123456),
+                                   (16384, 0), (16389, 2 ** 31)])
+def test_fractional_resample_kernel_from_the_edges_of_mu(dev, start):
+    """Start positions before the frame, at the last window that fits,
+    and past the block (no output), with mu_frac at its edges."""
+    _resample_against_plain(dev, torch.float32, 16384, 25 / 24,
+                            [16384, 16383, 16384], start=start)
+
+
+@pytest.mark.parametrize("n", [16384, 17478, 131072, 5])
+def test_fm_deemphasis_kernel_matches_plain(dev, n):
+    """8 chained blocks with partial, zero-count and over-full counts:
+    samples and y_prev within 1e-6 of the stream's largest sample, x_prev
+    equal; a zero-count block holds both states exactly."""
+    gen = np.random.default_rng(n)
+    blk = FMDeemphasis(48e3, device="cpu")
+    st_p = blk.init_state()
+    st_k = {k: v.to(dev) for k, v in st_p.items()}
+    scale = 0.0   # the largest sample of the stream so far
+    for b, c in enumerate([n, n - 3, 0, n, 1, 0, n + 7, n]):
+        x = _tail_block(gen, n, torch.float32)
+        cnt = torch.tensor(c, dtype=torch.int32)
+        ref = at.fm_deemphasis(x, cnt, st_p["y_prev"], st_p["x_prev"],
+                               *blk.b, blk.a)
+        got = at.fm_deemphasis(x.to(dev), cnt.to(dev), st_k["y_prev"],
+                               st_k["x_prev"], *blk.b, blk.a)
+        scale = max(scale, float(ref[0].abs().max()))
+        assert float((got[0].cpu() - ref[0]).abs().max()) <= 1e-6 * scale, b
+        assert abs(float(got[1]) - float(ref[1])) <= 1e-6 * scale, b
+        assert torch.equal(got[2].cpu(), ref[2]), b
+        if c == 0:
+            assert torch.equal(got[1], st_k["y_prev"])
+            assert torch.equal(got[2], st_k["x_prev"])
+            assert bool((got[0] == st_k["y_prev"]).all())
+        st_p = dict(y_prev=ref[1], x_prev=ref[2])
+        st_k = dict(y_prev=got[1], x_prev=got[2])
+
+
+def test_audio_tail_wrappers_count_launches_and_reject_bad_input(dev):
+    n = 1024
+    rs = FractionalResampler(n, 25 / 24, dtype=torch.float32, device=dev)
+    st, pr = rs.init_state(), rs.init_params()
+    x = torch.zeros(n, device=dev)
+    c = torch.tensor(n, dtype=torch.int32, device=dev)
+    args = (st["tail"], c, st["mu_int"], st["mu_frac"], pr["inc_int"],
+            pr["inc_frac"], rs.capacity, rs.taps_table)
+    before = at.fractional_resample.launches
+    at.fractional_resample(x, *args)
+    assert at.fractional_resample.launches == before + 1
+    with pytest.raises(TypeError):
+        at.fractional_resample(x.double(), *args)
+    with pytest.raises(ValueError):   # the count on the CPU
+        at.fractional_resample(x, st["tail"], c.cpu(), *args[2:])
+    with pytest.raises(ValueError):   # inc_frac as int32
+        at.fractional_resample(x, *args[:5], pr["inc_frac"].int(), *args[6:])
+    with pytest.raises(ValueError):   # a tail of another type
+        at.fractional_resample(x, st["tail"].double(), *args[1:])
+    with pytest.raises(ValueError):
+        at.fractional_resample(x, *args[:6], 0, rs.taps_table)
+    assert at.fractional_resample.launches == before + 1
+    de = FMDeemphasis(48e3, device=dev)
+    ds = de.init_state()
+    before = at.fm_deemphasis.launches
+    at.fm_deemphasis(x, c, ds["y_prev"], ds["x_prev"], *de.b, de.a)
+    assert at.fm_deemphasis.launches == before + 1
+    with pytest.raises(TypeError):
+        at.fm_deemphasis(x.to(torch.complex64), c, ds["y_prev"],
+                         ds["x_prev"], *de.b, de.a)
+    with pytest.raises(ValueError):
+        at.fm_deemphasis(x, c, ds["y_prev"].reshape(1), ds["x_prev"],
+                         *de.b, de.a)
+    with pytest.raises(ValueError):
+        at.fm_deemphasis(x[:0], c, ds["y_prev"], ds["x_prev"], *de.b, de.a)
+    assert at.fm_deemphasis.launches == before + 1
+
+
+@pytest.mark.parametrize("chain", ["cascade", "fractional"])
+def test_wbfm_audio_tail_kernel_arm_equals_plain_arm(dev, chain):
+    """The WBFM chain with its audio tail on the kernels ('auto') and on
+    the plain arm, over 6 blocks with a partial and a zero-count block:
+    counts and the resampler's state equal, audio within 1e-5 of the
+    largest; each kernel launches once a step."""
+    n = 1 << 20   # the audio tail at 16384 (cascade) or 131072 inputs
+    gen = np.random.default_rng(21)
+    blocks = [_cn(gen, n, dev) for _ in range(6)]
+    counts = [n, n, n - 40000, 0, n, n]
+    runs = {}
+    for backend in ("auto", "plain"):
+        cfg = wbfm.WBFMConfig(block_size=n, audio_chain=chain,
+                              center_freq=250e3)
+        fg, _ = wbfm.build_wbfm(cfg, device=dev)
+        # both arms run the channel and anti-alias kernels: only the
+        # audio tail's backend differs
+        for blk in fg.blocks:
+            if blk.name in ("resampler", "deemph"):
+                blk.backend = backend
+        step = fg.compile().step
+        states, params = fg.init_states(), fg.init_params()
+        launches = (at.fractional_resample.launches,
+                    at.fm_deemphasis.launches)
+        outs = []
+        for x, c in zip(blocks, counts):
+            s = Stream.full(x)
+            s.count = torch.tensor(c, dtype=torch.int32, device=dev)
+            states, out = step(states, params, {"iq": s})
+            outs.append(out["audio"])
+        done = (at.fractional_resample.launches - launches[0],
+                at.fm_deemphasis.launches - launches[1])
+        assert done == ((6, 6) if backend == "auto" else (0, 0)), backend
+        runs[backend] = (outs, states)
+    (ka, ks), (pa, ps) = runs["auto"], runs["plain"]
+    for got, ref in zip(ka, pa):
+        c = int(ref.count)
+        assert int(got.count) == c
+        if c:
+            assert _err(got.data[:c], ref.data[:c]) < 1e-5
+    for k in ("tail", "mu_int", "mu_frac"):
+        assert torch.equal(ks["resampler"][k], ps["resampler"][k]), k
+    scale = max(float(o.data.abs().max()) for o in pa)
+    for k in ("y_prev", "x_prev"):
+        assert abs(float(ks["deemph"][k]) - float(ps["deemph"][k])) \
+            < 1e-5 * scale, k
 
 
 # ---------------------------------------------------------------------------

@@ -269,3 +269,43 @@ def test_off_on_the_card_adds_no_event(monkeypatch):
     wait = [s for s in trace.spans() if s.name == "fetch.wait"]
     assert len(wait) == 1
     trace.clear()
+
+
+def test_trace_split_maps_the_trace_clock_by_both_markers():
+    """``tools/trace_split.py``'s per-Block split puts each runtime call in
+    the span open at its host time, the trace's clock mapped by the
+    window's two markers: a launch 30 us before a span's end, read through
+    a 40 ppm drift over 2 s (80 us at the end), stays in its span."""
+    import importlib.util
+    import pathlib
+
+    from radiobench import spans as bench_spans
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "trace_split.py"
+    spec = importlib.util.spec_from_file_location("trace_split", path)
+    ts_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ts_mod)
+    Span = collections.namedtuple("Span", "name t0 t1")
+    h_a, drift = 100.0, 1.0 + 40e-6
+    marks = {bench_spans.Profile.START: h_a,
+             bench_spans.Profile.END: h_a + 2.0 * drift}
+    mine = [Span("block.resampler", h_a + 1.9999, h_a + 1.99998),
+            Span("block.deemph", h_a + 1.99998, h_a + 1.99999)]
+
+    def at(host):  # the trace's microseconds of a host time
+        return 5e6 + (host - h_a) / drift * 1e6
+
+    events = [dict(name=bench_spans.Profile.START, ph="X", ts=at(h_a)),
+              dict(name=bench_spans.Profile.END, ph="X",
+                   ts=at(h_a + 2.0 * drift)),
+              dict(name="cudaLaunchKernel", ph="X", cat="cuda_runtime",
+                   ts=at(h_a + 1.99995), args=dict(correlation=7)),
+              dict(name="cudaLaunchKernel", ph="X", cat="cuda_runtime",
+                   ts=at(h_a + 1.999985), args=dict(correlation=8)),
+              dict(name="k", ph="X", cat="kernel", ts=at(h_a + 1.99996),
+                   dur=4.0, args=dict(correlation=8))]
+    got = ts_mod.per_leaf(events, marks, mine, 1)
+    assert got["block.resampler"]["launches"] == 1
+    assert got["block.deemph"]["launches"] == 1
+    assert got["block.deemph"]["device_ms"] == pytest.approx(0.004)
+    assert "other" not in got

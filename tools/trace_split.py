@@ -132,22 +132,28 @@ LEAVES = ("dispatch.params", "dispatch.stage", "dispatch.upload",
           "dispatch.meta", "fetch.wait", "fetch.copy")
 
 
-def per_leaf(events, host_start, mine, blocks) -> dict:
+def per_leaf(events, marks, mine, blocks) -> dict:
     """Each CUDA API call of the exported trace, by the innermost span open
     on the host at its start (a ``block.*`` or a part of ``dispatch`` or
     ``fetch``; ``other`` for none), and each device event, by the span of
     the call that launched it (the profiler's correlation ids): API calls,
-    kernel launches and device ms a block."""
+    kernel launches and device ms a block. The trace's clock is mapped onto
+    the host's by the window's two markers (``marks``: their host times),
+    so that a drift between the two clocks over the window does not move a
+    call into a neighbouring span."""
     from radiobench import spans as host
-    start = [e["ts"] + 0.5 * e.get("dur", 0.0) for e in events
-             if e.get("name") == host.Profile.START][0]
-    offset = host_start - start * 1e-6
+    ts = {e["name"]: (e["ts"] + 0.5 * e.get("dur", 0.0)) * 1e-6
+          for e in events
+          if e.get("name") in (host.Profile.START, host.Profile.END)}
+    t_a, t_b = ts[host.Profile.START], ts[host.Profile.END]
+    h_a, h_b = marks[host.Profile.START], marks[host.Profile.END]
+    rate = (h_b - h_a) / (t_b - t_a)
     leaves = sorted((s.t0, s.t1, s.name) for s in mine
                     if s.name in LEAVES or s.name.startswith("block."))
     t0s = [x[0] for x in leaves]
 
     def label(ts):
-        t = ts * 1e-6 + offset
+        t = h_a + (ts * 1e-6 - t_a) * rate
         i = bisect.bisect_right(t0s, t) - 1
         return leaves[i][2] if i >= 0 and t < leaves[i][1] else "other"
 
@@ -189,6 +195,7 @@ def split(cell_name, seeds, seconds):
 
     def read(self):
         got["trace"] = real_read(self)
+        got["marks"] = dict(self.marks)
         return got["trace"]
 
     class Recorder(real_recorder):
@@ -197,7 +204,7 @@ def split(cell_name, seeds, seconds):
             got["rec"] = self
 
     def from_events(events, host_start):
-        got["events"], got["host_start"] = events, host_start
+        got["events"] = events
         return real_from(events, host_start)
 
     real_from = spans.trace_from_events
@@ -226,7 +233,7 @@ def split(cell_name, seeds, seconds):
             block_ranges_in_trace=sum(
                 str(e.get("name", "")).startswith("block.")
                 for e in got["events"]),
-            per_leaf=per_leaf(got["events"], got["host_start"], mine, sum(
+            per_leaf=per_leaf(got["events"], got["marks"], mine, sum(
                 s.name == "executor.dispatch" for s in mine)))), flush=True)
 
 
