@@ -95,7 +95,13 @@ failure of which exits non-zero:
     0-1 bit-equal to the CPU; fec_eval on 2^14 symbols card against CPU
     (bits and BER equal); GLFSRSource -> 1% flips -> PNBERv at 2^20 bits a
     block (no kernel), its estimate inside the JAX test's bar and within
-    1e-6 of the CPU's; then timed and profiled;
+    1e-6 of the CPU's; then timed and profiled; then the served FEC path
+    (``lrpt_path``): AutoFECBlock in a Flowgraph under a host-fed
+    StreamExecutor over 12 blocks of the same scene, K3 and the Block's
+    three kernels (``csrc/auto_fec.cu``) one launch a block each, counted
+    like phase 3; the search on the card locks on a transform that undoes
+    the channel, the locked blocks decode the planted bits, blocks 0-2
+    equal the CPU bit for bit; timed and profiled;
 13. the decoders path (``decoders_path``): ACARSDecoder
     (``csrc/acars_fsm.cu``), ManchesterDecode (``csrc/manchester_fsm.cu``)
     and two DPLLBitSyncs (``csrc/dpll_walk.cu``), each a one-block graph
@@ -205,7 +211,9 @@ path's 2^16-sample f32 block, its walk's chain bound printed beside it.
 
 The decoders' kernels: K3 (Viterbi) at [2^16, 2] (an AutoFEC block) and
 [2^16 + 96, 2] (a ViterbiDecoder block with its overlap), bits and final
-path metrics; K4-K6 (ACARS, Manchester, DPLL) at [1, 2^14] and at the JAX
+path metrics; the served auto-FEC Block's three (``csrc/auto_fec.cu``) at
+[2^16 + 97] symbols (a block and its carry), each equal to its plain twin
+in every bit; K4-K6 (ACARS, Manchester, DPLL) at [1, 2^14] and at the JAX
 benchmark's bank [64, 2^14], outputs and the whole state; K4 also on
 noise at threshold 8 and on edge rows (packets open across the calls at
 every bit of a byte, syncs found only with the carried register, DEL at
@@ -269,8 +277,9 @@ from grbaz_tpu_torch.core.graph import Flowgraph
 from grbaz_tpu_torch.core.pump import StreamPump
 from grbaz_tpu_torch.core.stream import (Stream, StreamMeta, decode_abs_index,
                                          decode_i32, stream_flags)
-from grbaz_tpu_torch.models.auto_fec import (_ROTATIONS, AutoFEC, fec_eval,
-                                             reencode)
+from grbaz_tpu_torch.models.auto_fec import (_ROTATIONS, AutoFEC,
+                                             AutoFECBlock, FECSearch,
+                                             fec_eval, reencode)
 from grbaz_tpu_torch.models.fmcw import (FMCWConfig, build_fmcw, chirp_iq,
                                          simulate_echo)
 from grbaz_tpu_torch.models.p25 import P25Config, build_p25_rx, c4fm_modulate
@@ -292,6 +301,7 @@ from grbaz_tpu_torch.ops.colour import Colouriser, thermal_gradient
 from grbaz_tpu_torch.ops.detect import Correlator, PeakDetector, RadarDetector
 from grbaz_tpu_torch.ops.cuda import acars_fsm as af
 from grbaz_tpu_torch.ops.cuda import audio_tail as at
+from grbaz_tpu_torch.ops.cuda import auto_fec as afc
 from grbaz_tpu_torch.ops.cuda import build
 from grbaz_tpu_torch.ops.cuda import channel_bank as cb
 from grbaz_tpu_torch.ops.cuda import dpll_walk as dw
@@ -393,6 +403,18 @@ KERNELS = {  # row -> (wrappers whose launches it counts, source, TPU kernel)
     "fm_deemphasis": (
         (at.fm_deemphasis,), "grbaz_tpu_torch/csrc/audio_tail.cu",
         "grbaz_tpu/ops/demod.py:128"),
+    # the served auto-FEC Block's steps beside K3: fec_eval's transform and
+    # its re-encoding and BER (XLA ops in the JAX package), and AutoFEC's
+    # search (host code there), one launch each
+    "fec_pairs": (
+        (afc.fec_pairs,), "grbaz_tpu_torch/csrc/auto_fec.cu",
+        "grbaz_tpu/models/auto_fec.py:47"),
+    "fec_ber": (
+        (afc.fec_ber,), "grbaz_tpu_torch/csrc/auto_fec.cu",
+        "grbaz_tpu/models/auto_fec.py:72"),
+    "fec_search": (
+        (afc.fec_search,), "grbaz_tpu_torch/csrc/auto_fec.cu",
+        "grbaz_tpu/models/auto_fec.py:135"),
 }
 # kernels each path launches; xlating_fir_frame_rtf is the
 # frame-convention entry point of the channelizer kernel, which the JAX
@@ -404,6 +426,8 @@ FUSED_PATH_KERNELS = ("xlating_fir_ctaps_block", *AUDIO_TAIL_KERNELS)
 # rtl_fm's fractional chain
 RTL_FM_KERNELS = ("xlating_fir_block", *AUDIO_TAIL_KERNELS)
 BANK_PATH_KERNELS = ("channel_bank",)
+# the served FEC path (AutoFECBlock): K3 and the Block's three kernels
+LRPT_KERNELS = ("viterbi", "fec_pairs", "fec_ber", "fec_search")
 BURST_PATH_KERNELS = ("peak_fsm",)
 # the device functions of the FSM kernel's three passes, as the profiler
 # names them
@@ -762,6 +786,7 @@ def kernel_cases(dev):
         fastrak_case(dev, 9, 1, BLOCK, "sync held high", held=True),
         vrr_case(dev),
         *audio_tail_cases(dev),
+        *auto_fec_cases(dev),
         *decode_kernel_cases(dev),
     ]
 
@@ -1140,6 +1165,102 @@ def audio_tail_cases(dev):
                                     de0)[0],
              check=held_deemph, rel=1e-6, library=None,
              nbytes=8 * cap, flops=5 * cap)]
+
+
+def auto_fec_cases(dev):
+    """The served auto-FEC Block's three kernels at the lrpt cell's shape:
+    a block of FEC_BLOCK symbols and the carried FEC_OVERLAP + 1, so
+    [2^16 + 97] symbols and 2^16 + 96 pairs. Each check holds the kernel
+    to its plain twin exactly (every bit): the pairs under every search
+    state (each of the 32 transforms, with the lock and count bits set
+    and not); the BER at ~0.6% and ~50% hard errors; the search from
+    every state after BERs at, beside and between its two levels, and
+    NaN."""
+    blk = AutoFECBlock(device=dev)
+    search, k, polys = blk.search, blk.k, blk.polys
+    n, ov = FEC_BLOCK, FEC_OVERLAP
+    pairs, n_eval = ov + n, n - 16
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def cn(m):
+        return torch.view_as_complex(torch.randn(m, 2, generator=gen,
+                                                 device=dev))
+
+    carry = cn(ov + 1)
+    blocks = copies(lambda: cn(n), 8 * n)
+    states = [torch.tensor([s], dtype=torch.int32, device=dev)
+              for s in range(search.n_states)]
+    bits = torch.randint(0, 2, (pairs,), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    code = reencode(bits, k, polys).to(torch.float32) * 2 - 1
+
+    def noisy(rms):
+        return code + rms * torch.randn(pairs, 2, generator=gen, device=dev)
+
+    exts = copies(lambda: noisy(FEC_NOISE), 8 * pairs)
+    f32 = np.float32
+    levels = [0.0, 0.01, 0.049, float(f32(search.threshold)), 0.3,
+              float(np.nextafter(f32(search.unlock), f32(0))),
+              float(f32(search.unlock)), 0.9, float("nan")]
+    bers = [torch.tensor([b], dtype=torch.float32, device=dev)
+            for b in levels]
+
+    def pairs_of(fn, x, st):
+        return fn(carry, x, st, blk._pick, blk._sign)
+
+    def ber_of(fn, ext):
+        return fn(bits, ext, ov, k, polys)
+
+    def search_of(fn, st, b):
+        return fn(search.table, st, b, search.threshold, search.unlock)
+
+    def held(calls):
+        kern = torch.cat([c(True).reshape(-1) for c in calls])
+        plain = torch.cat([c(False).reshape(-1) for c in calls])
+        return kern, plain
+
+    def pick(kernel, plain):
+        return lambda use: kernel if use else plain
+
+    def held_pairs():
+        return held([lambda u, st=st: pairs_of(
+            pick(afc.fec_pairs, fec.fec_pairs_plain)(u), blocks[0], st)
+            for st in states])
+
+    def held_ber():
+        return held([lambda u, e=e: ber_of(
+            pick(afc.fec_ber, fec.fec_ber_plain)(u), e)
+            for e in (exts[0], noisy(10.0))])
+
+    def held_search():
+        return held([lambda u, st=st, b=b: search_of(
+            pick(afc.fec_search, fec.fec_search_plain)(u), st, b)
+            for st in states for b in bers])
+
+    return [
+        dict(name="fec_pairs", shape=f"lrpt, {ov + 1} + {n} c64",
+             kernel=lambda i: pairs_of(afc.fec_pairs, blocks[i % len(blocks)],
+                                       states[i % len(states)]),
+             plain=lambda i: pairs_of(fec.fec_pairs_plain,
+                                      blocks[i % len(blocks)],
+                                      states[i % len(states)]),
+             check=held_pairs, bits=True, library=None,
+             nbytes=8 * (ov + 1 + n) + 8 * pairs, flops=2 * pairs),
+        # integer work (shifts, parities, compares): bound by its bytes
+        dict(name="fec_ber", shape=f"lrpt, {pairs} pairs at K={k}",
+             kernel=lambda i: ber_of(afc.fec_ber, exts[i % len(exts)]),
+             plain=lambda i: ber_of(fec.fec_ber_plain, exts[i % len(exts)]),
+             check=held_ber, bits=True, library=None,
+             nbytes=(n_eval + k - 1) + 8 * n_eval + 4, flops=0),
+        dict(name="fec_search", shape="one state, one BER",
+             kernel=lambda i: search_of(afc.fec_search,
+                                        states[i % len(states)],
+                                        bers[i % len(bers)]),
+             plain=lambda i: search_of(fec.fec_search_plain,
+                                       states[i % len(states)],
+                                       bers[i % len(bers)]),
+             check=held_search, bits=True, library=None, nbytes=12,
+             flops=2)]
 
 
 def bank_case(dev, gen, h_chan):
@@ -2617,6 +2738,9 @@ FEC_ROTATION = 3         # the channel's rotation (with a conjugation)
 FEC_LOCKED = (1, True)   # the transform that undoes it
 PN_BLOCK = 1 << 20
 PN_FLIP = 0.01
+LRPT_BLOCKS = 12         # the served FEC path's blocks: it locks by block 6
+LRPT_CPU_BLOCKS = 3      # of them, held to the port on the CPU
+LRPT_PORTS = ("pm", "bits", "ber", "state")
 DECODE_KERNELS = ("acars_fsm", "manchester_fsm", "dpll_walk")
 # the decoders path's pulse trains: (period, the DPLL's start, its gain)
 DPLL_TRAINS = ((100.3, 97.0, 0.1), (16.0, 15.5, 0.05))
@@ -3288,6 +3412,81 @@ def fec_path(dev):
     pn_ber_phase(dev)
     time_path("viterbi_decoder", one_block_graph(vdec), xs, 72e3, FEC_BLOCK,
               "Mbit/s", kernels=("viterbi_warp", "trace_map", "trace_bits"))
+    return launches
+
+
+def lrpt_graph(device):
+    """One AutoFECBlock (the served auto-FEC search) in a Flowgraph, as
+    the lrpt deployment serves each pass: outputs ``LRPT_PORTS``."""
+    blk = AutoFECBlock(overlap=FEC_OVERLAP, name="fec", device=device)
+    fg = Flowgraph("lrpt")
+    fg.input("iq", blk)
+    for i, port in enumerate(LRPT_PORTS):
+        fg.output(port, (blk, i))
+    return fg
+
+
+def lrpt_path(dev):
+    """The served FEC path: the lrpt graph under a host-fed
+    StreamExecutor over LRPT_BLOCKS blocks of FEC_BLOCK symbols of
+    fec_scene's rotated and conjugated stream, launch counts set to 0
+    just before: K3, fec_pairs, fec_ber and fec_search once a block each,
+    every other kernel none. The search steps to a transform that undoes
+    the channel on the card and locks; every block decoded under the lock
+    gives the planted bits up to the complement; blocks 0 .. 2 equal the
+    port on the CPU (path metrics, bits, BER and state, every bit). Then
+    the graph step timed and profiled."""
+    sym, planted = fec_scene(dev, LRPT_BLOCKS)
+    host = sym.cpu().numpy()
+    blocks = [host[b * FEC_BLOCK:(b + 1) * FEC_BLOCK]
+              for b in range(LRPT_BLOCKS)]
+
+    def executor(device):
+        return StreamExecutor(lrpt_graph(device), {"iq": InputSpec(
+            (FEC_BLOCK,), "complex64", 72e3)}, device=device)
+
+    ex = executor(dev)
+    outs, launches = counted(
+        "lrpt path (AutoFECBlock, StreamExecutor)", LRPT_KERNELS,
+        LRPT_BLOCKS, lambda: [ex.step({"iq": x}) for x in blocks])
+    states = [FECSearch.unpack(int(o["state"][0][0])) for o in outs]
+    lock = next((j for j, st in enumerate(states) if st[1]), None)
+    check(lock is not None and all(st[1] for st in states[lock:]),
+          f"lrpt path: the search did not lock and hold ({states})")
+    fixing = {FEC_LOCKED, (3, True)}
+    check((states[-1][0] & 3, bool(states[-1][0] & 4)) in fixing
+          and states[-1][0] < 8, f"lrpt path locked on {states[-1][0]}")
+    worst = 0.0
+    for j in range(lock + 1, LRPT_BLOCKS):
+        got, c = outs[j]["bits"]
+        err = bit_errors(got[:c], planted[j * FEC_BLOCK:(j + 1) * FEC_BLOCK])
+        ber = float(outs[j]["ber"][0][0])
+        worst = max(worst, err)
+        check(c == FEC_BLOCK and err < 0.01 and ber < 0.02,
+              f"lrpt block {j}: {c} bits, bit errors {err:.4f}, BER "
+              f"{ber:.4f}")
+    cpu = executor("cpu")
+    for j in range(LRPT_CPU_BLOCKS):
+        want = cpu.step({"iq": blocks[j]})
+        for port in LRPT_PORTS:
+            (g, gc), (w, wc) = outs[j][port], want[port]
+            check(gc == wc and same_bits(torch.from_numpy(g[:gc]),
+                                         torch.from_numpy(w[:wc])),
+                  f"lrpt block {j} {port}: card and CPU differ")
+    print(f"lrpt path (AutoFECBlock under StreamExecutor, {FEC_BLOCK} "
+          f"symbols a block): transform after each block "
+          f"{[st[0] for st in states]}, locked after block {lock}; BER a "
+          f"block {[round(float(o['ber'][0][0]), 5) for o in outs]}; bit "
+          f"errors at most {worst:.2e} of the planted bits over "
+          f"{LRPT_BLOCKS - lock - 1} locked blocks; blocks 0-"
+          f"{LRPT_CPU_BLOCKS - 1} bit-equal to the CPU; launches "
+          f"{ {n: launches[n] for n in LRPT_KERNELS} } over {LRPT_BLOCKS} "
+          "blocks")
+    time_path("lrpt_fec", lrpt_graph(dev),
+              [sym[b * FEC_BLOCK:(b + 1) * FEC_BLOCK]
+               for b in range(LRPT_BLOCKS)], 72e3, FEC_BLOCK, "Msym/s",
+              kernels=("viterbi_warp", "trace_map", "trace_bits",
+                       "pairs_kernel", "ber_kernel", "search_kernel"))
     return launches
 
 
@@ -5404,6 +5603,9 @@ def main() -> int:
     launches["vrr_walk"] = am_path(dev)["vrr_walk"]
     launches["fastrak_fsm"] = fastrak_path(dev)["fastrak_fsm"]
     launches["viterbi"] = fec_path(dev)["viterbi"]
+    for name, n in lrpt_path(dev).items():
+        if name in LRPT_KERNELS:
+            launches[name] += n
     dec_launches = decoders_path(dev)
     for name in DECODE_KERNELS:
         launches[name] = dec_launches[name]

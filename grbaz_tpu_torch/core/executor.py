@@ -24,6 +24,10 @@
   it), ``dispatch.upload``, ``dispatch.meta`` and ``dispatch.graph`` (the
   step's launches), then ``fetch.wait`` (on a CUDA event recorded after
   those launches) and ``fetch.copy``.
+* On the card ``fetch`` copies on the executor's own copy stream, after
+  that end-of-step event: the copies wait for their step alone, not for
+  the steps queued behind it on the compute stream (this executor's in
+  flight, or other executors' sharing the stream).
 """
 
 from __future__ import annotations
@@ -90,6 +94,11 @@ class _Uploader:
         return dev
 
 
+def _to_host(outs) -> Dict[str, Tuple[np.ndarray, int]]:
+    return {name: (s.data.cpu().numpy(), int(s.count))
+            for name, s in outs.items()}
+
+
 class StreamExecutor:
     """Host-side streaming driver for a Flowgraph."""
 
@@ -109,7 +118,11 @@ class StreamExecutor:
         self.params = graph.init_params()  # host-side, caller may mutate
         self.stream_id = next(_STREAM_IDS)
         self.seq = 0  # the next dispatch's index
-        self._traced = {}  # id(outs) -> (seq, end-of-step event), traced steps
+        self._copy = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+        # id(outs) -> (seq, end-of-step event) of the steps not yet fetched
+        # (on the card, or traced)
+        self._pending = {}
         self._events = []  # end-of-step events free for reuse
 
     # -- lifecycle ---------------------------------------------------------
@@ -118,7 +131,7 @@ class StreamExecutor:
         self._meta = {name: StreamMeta.start(self.inputs[name].sample_rate,
                                              device=self.device)
                       for name in self.graph.in_ports}
-        self._traced.clear()
+        self._pending.clear()
         return self
 
     # -- stepping ----------------------------------------------------------
@@ -167,34 +180,40 @@ class StreamExecutor:
         self._states, outs = self._step_fn(self._states, dev_params, streams)
         if traced:
             trace.end(span)
+        if traced or self._copy is not None:
             done = None
-            if self.device.type == "cuda":  # the end of the step's launches
+            if self._copy is not None:  # the end of the step's launches
                 done = self._events.pop() if self._events \
                     else torch.cuda.Event()
                 done.record()
-            if len(self._traced) > 64:  # steps dispatched but never fetched
-                self._traced.clear()
-            self._traced[id(outs)] = (seq, done)
+            if len(self._pending) > 64:  # steps dispatched but never fetched
+                self._pending.clear()
+            self._pending[id(outs)] = (seq, done)
+        if traced:
             trace.end(top)
         return outs
 
     def fetch(self, outs) -> Dict[str, Tuple[np.ndarray, int]]:
         """Wait for a dispatched step's outputs and bring them to the host."""
-        if not trace.on():
-            return {name: (s.data.cpu().numpy(), int(s.count))
-                    for name, s in outs.items()}
-        seq, done = self._traced.pop(id(outs), (-1, None))
-        top = trace.begin("executor.fetch", self.stream_id, seq)
-        span = trace.begin("fetch.wait")
+        traced = trace.on()
+        seq, done = self._pending.pop(id(outs), (-1, None))
+        if traced:
+            top = trace.begin("executor.fetch", self.stream_id, seq)
+            span = trace.begin("fetch.wait")
+            if done is not None:
+                done.synchronize()
+            trace.end(span)
+            span = trace.begin("fetch.copy")
         if done is not None:
-            done.synchronize()
+            self._copy.wait_event(done)
+            with torch.cuda.stream(self._copy):
+                got = _to_host(outs)
             self._events.append(done)
-        trace.end(span)
-        span = trace.begin("fetch.copy")
-        got = {name: (s.data.cpu().numpy(), int(s.count))
-               for name, s in outs.items()}
-        trace.end(span, sum(d.nbytes for d, _ in got.values()))
-        trace.end(top)
+        else:
+            got = _to_host(outs)
+        if traced:
+            trace.end(span, sum(d.nbytes for d, _ in got.values()))
+            trace.end(top)
         return got
 
     def step(self, ins: Dict[str, np.ndarray],

@@ -29,7 +29,7 @@ BUILD_DIR = PKG / "_build"
 KERNEL_SOURCES = ("xlating_fir", "fir_decimate", "xlating_fir_ctaps",
                   "peak_fsm", "channel_bank", "fastrak_fsm", "vrr_walk",
                   "viterbi", "acars_fsm", "manchester_fsm", "dpll_walk",
-                  "audio_tail")
+                  "audio_tail", "auto_fec")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

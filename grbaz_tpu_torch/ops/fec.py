@@ -356,14 +356,66 @@ class ViterbiDecoder(Block):
                                      device=self.device),
                     warm=scalar(0, torch.int32, self.device))
 
-    def apply(self, state, params, x: Stream):
+    def decode(self, ext: torch.Tensor):
+        """Decode ``ext`` [overlap + N, 2] float32, the warm-up pairs
+        then the block's, from state 0: (bits [overlap + N] uint8, final
+        path metrics [2^(K-1)] float32)."""
         from grbaz_tpu_torch.ops.cuda.viterbi import viterbi
+        return viterbi(ext, self._exp)
+
+    def apply(self, state, params, x: Stream):
         # x.data: [N, 2] soft pairs
         ext = torch.cat([state["tail"], x.data.to(torch.float32)])
-        bits = viterbi(ext, self._exp)[0]
+        bits = self.decode(ext)[0]
         new_state = dict(tail=ext[-self.overlap:],
                          warm=torch.clamp(state["warm"] + 1, max=1000))
         return new_state, (x.like(bits[self.overlap:], count=x.count),)
+
+
+# ---------------------------------------------------------------------------
+# the served auto-FEC Block's steps beside the decoder, plain versions
+# (models/auto_fec.py AutoFECBlock; the kernels: ops/cuda/auto_fec.py)
+# ---------------------------------------------------------------------------
+
+def fec_pairs_plain(carry: torch.Tensor, block: torch.Tensor,
+                    state: torch.Tensor, pick: torch.Tensor,
+                    sign: torch.Tensor) -> torch.Tensor:
+    """The soft pairs [len(carry) - 1 + len(block), 2] float32 of [carry,
+    block] (complex64) under the transform t = ``state & 31`` of the
+    search state ``state`` ([1] int32): pair i is ``sign[t] * w_i[pick[t]]``
+    of the window w_i = (re, im of symbols i and i + 1); ``pick`` [32, 2]
+    int64 and ``sign`` [32, 2] float32 by transform."""
+    raw = torch.cat([carry, block])
+    win = torch.view_as_real(raw).view(-1).unfold(0, 4, 2)
+    t = state & 31
+    return win.index_select(1, pick.index_select(0, t).view(2)) \
+        * sign.index_select(0, t)
+
+
+def fec_ber_plain(bits: torch.Tensor, ext: torch.Tensor, overlap: int, k: int,
+                  polys) -> torch.Tensor:
+    """[1] float32: the share of the hard-sliced code bits of ``ext``'s
+    pairs after the first ``overlap``, all but the last 16, that the
+    decoded ``bits`` re-encoded contradict: the count in float32 times the
+    float32 reciprocal. The encoder's register at pair p holds bits
+    p-k+1 .. p, the newest at its MSB."""
+    n_eval = ext.shape[0] - overlap - 16
+    win = bits[overlap - k + 1:overlap + n_eval].unfold(0, k, 1)
+    reg = (win.to(torch.int64) << torch.arange(k, device=bits.device)).sum(1)
+    code = torch.stack([_parity(reg & int(p)) for p in polys], 1) == 1
+    errs = (code != (ext[overlap:overlap + n_eval] > 0)).sum()
+    return (errs * float(np.float32(1) / np.float32(2 * n_eval))).view(1)
+
+
+def fec_search_plain(table: torch.Tensor, state: torch.Tensor,
+                     ber: torch.Tensor, threshold: float,
+                     unlock: float) -> torch.Tensor:
+    """The search state [1] int32 after a block: ``table`` at ``state * 4
+    + 2 (ber > unlock) + (ber < threshold)``, the float32 BER compared in
+    float64 (a NaN is neither)."""
+    b = ber.reshape(1).to(torch.float64)
+    row = state * 4 + (b > unlock) * 2 + (b < threshold)
+    return table.index_select(0, row)
 
 
 # ---------------------------------------------------------------------------

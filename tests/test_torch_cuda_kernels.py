@@ -448,6 +448,35 @@ def test_dispatch_does_not_wait_for_the_card(dev):
     assert np.abs(quad_off).mean() > 0.1
 
 
+def test_executor_fetch_does_not_wait_for_later_work(dev):
+    """fetch brings a step's outputs back while work queued on the card
+    after the step (a sleep, as another executor's decode on the shared
+    stream would be) still runs: its copies wait for their step alone.
+    The outputs equal the same step's before."""
+    n = 1 << 14
+    cfg = wbfm.WBFMConfig(block_size=n, center_freq=250e3, fused=True)
+    fg, _ = wbfm.build_wbfm(cfg, device=dev)
+    ex = StreamExecutor(fg, {"iq": InputSpec((n,), "complex64", FS)},
+                        device=dev)
+    x = np.exp(2j * np.pi * 250e3 / FS * np.arange(n)).astype(np.complex64)
+    want = ex.step({"iq": x})  # warm-up: builds the kernel, fills the caches
+    ex.reset()
+    outs = ex.dispatch({"iq": x})
+    torch.cuda._sleep(int(2e9))  # ~1 s of card time queued behind the step
+    t0 = time.perf_counter()
+    got = ex.fetch(outs)
+    host_s = time.perf_counter() - t0
+    done = torch.cuda.Event()
+    done.record()
+    busy = not done.query()
+    assert busy and host_s < 0.5, \
+        f"fetch took {host_s:.3f} s; card still busy after it: {busy}"
+    assert got.keys() == want.keys()
+    for port, (data, count) in want.items():
+        assert got[port][1] == count
+        assert np.array_equal(got[port][0], data), port
+
+
 def _bank_inputs(gen, slots, n, decim, dev, wrap):
     h = _taps(decim, dev)
     tail = _cn(gen, slots * (h.shape[0] - 1), dev).reshape(slots, -1)
@@ -1339,6 +1368,71 @@ def test_fec_entry_points_run_on_the_card_at_k2_and_k10(dev, k):
                     for b in range(3)])
     for g, c in zip(*fed):
         assert _same(g[0], c[0]) and g[1:] == c[1:]
+
+
+def test_auto_fec_kernels_equal_their_plain_twins(dev):
+    """The served auto-FEC Block's three kernels against their plain twins
+    at the cell's shape: the pairs under every state's transform, the BER
+    of random bits and pairs, and the search over BERs at and beside its
+    levels; one launch a call each."""
+    from grbaz_tpu_torch.models.auto_fec import AutoFECBlock, reencode
+    from grbaz_tpu_torch.ops import fec
+    from grbaz_tpu_torch.ops.cuda import auto_fec as af
+    gen = torch.Generator().manual_seed(7)
+    n, ov = 1 << 16, 96
+    blk = AutoFECBlock(device="cpu")
+    carry = torch.view_as_complex(torch.randn(ov + 1, 2, generator=gen))
+    block = torch.view_as_complex(torch.randn(n, 2, generator=gen))
+    before = af.fec_pairs.launches
+    for s in range(blk.search.n_states):
+        state = torch.tensor([s], dtype=torch.int32)
+        got = af.fec_pairs(carry.to(dev), block.to(dev), state.to(dev),
+                           blk._pick.to(dev), blk._sign.to(dev))
+        assert _same(got, fec.fec_pairs_plain(carry, block, state, blk._pick,
+                                              blk._sign)), s
+    assert af.fec_pairs.launches == before + blk.search.n_states
+    bits = torch.randint(0, 2, (ov + n,), generator=gen, dtype=torch.uint8)
+    code = reencode(bits, 7, (0o171, 0o133)).to(torch.float32) * 2 - 1
+    for noise in (0.4, 10.0):  # BERs near 0.006 and near 0.5
+        ext = code + noise * torch.randn(ov + n, 2, generator=gen)
+        assert _same(af.fec_ber(bits.to(dev), ext.to(dev), ov, 7,
+                                (0o171, 0o133)),
+                     fec.fec_ber_plain(bits, ext, ov, 7, (0o171, 0o133)))
+    f32 = np.float32
+    levels = [0.0, 0.01, 0.049, float(f32(0.05)), 0.3, float(np.nextafter(
+        f32(0.4), f32(0))), float(f32(0.4)), 0.9, float("nan")]
+    for s in range(blk.search.n_states):
+        for b in levels:
+            state = torch.tensor([s], dtype=torch.int32)
+            ber = torch.tensor([b], dtype=torch.float32)
+            got = af.fec_search(blk.search.table.to(dev), state.to(dev),
+                                ber.to(dev), 0.05, 0.4)
+            assert _same(got, fec.fec_search_plain(
+                blk.search.table, state, ber, 0.05, 0.4)), (s, b)
+
+
+def test_autofec_block_on_the_card_equals_the_cpu(dev):
+    """The served auto-FEC Block, its search state on the card, block by
+    block equal to its plain path on the CPU through the search and the
+    lock: path metrics, bits, BER and state."""
+    from grbaz_tpu_torch.models.auto_fec import AutoFECBlock
+    from radiobench import manifest
+    from radiobench.configs import lrpt
+    cfg = manifest.config("lrpt")
+    n = 1 << 12
+    _, sym, _ = lrpt.passes(cfg, 1, 4 * n, 2 ** 31 + 41, dev, states=[9])
+    outs = []
+    for d in (dev, "cpu"):
+        blk = AutoFECBlock(device=d)
+        st, out = blk.init_state(), []
+        for b in range(14):
+            st, o = blk.apply(st, None, Stream.full(
+                sym[0, (b % 4) * n:(b % 4 + 1) * n].to(d)))
+            out.append([t.data for t in o] + [st["carry"]])
+        outs.append(out)
+    for g, c in zip(*outs):
+        assert all(_same(a, b) for a, b in zip(g, c))
+    assert outs[1][-1][3].item() >> 5 & 1  # locked by the last block
 
 
 def _serial_cases():

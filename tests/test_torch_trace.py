@@ -213,6 +213,47 @@ def test_dispatch_inside_the_benchmarks_span(tracing):
         assert o[3] <= i.t0 <= i.t1 <= o[4]
 
 
+def test_autofec_block_spans_nest_in_its_block():
+    """The auto-FEC Block's four parts, inside ``block.fec`` of each
+    traced step, ``fec.decode`` counting the pairs decoded; an untraced
+    step records none."""
+    from grbaz_tpu_torch.core.graph import Flowgraph
+    from grbaz_tpu_torch.models.auto_fec import AutoFECBlock
+
+    n, overlap = 256, 96
+    fec = AutoFECBlock(overlap=overlap, name="fec", device="cpu")
+    fg = Flowgraph("lrpt")
+    fg.input("iq", fec)
+    for i, port in enumerate(("pm", "bits", "ber", "state")):
+        fg.output(port, (fec, i))
+    ex = StreamExecutor(fg, {"iq": InputSpec((n,), "complex64", 72e3)},
+                        device="cpu")
+    rng = np.random.default_rng(3)
+    blocks = [{"iq": (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+               .astype(np.complex64)} for _ in range(3)]
+    trace.clear()
+    ex.step(blocks[0])
+    assert trace.spans() == []
+    trace.enable()
+    try:
+        for b in blocks[1:]:
+            ex.step(b)
+    finally:
+        trace.disable()
+    per = _by_block(trace.spans())
+    trace.clear()
+    assert sorted(per) == [(ex.stream_id, 1), (ex.stream_id, 2)]
+    for mine in per.values():
+        top = next(s for s in mine if s.name == "block.fec")
+        kids = [s for s in mine if s.parent == "block.fec"]
+        assert [s.name for s in kids] == ["fec.transform", "fec.decode",
+                                          "fec.check", "fec.search"]
+        assert all(_inside(k, top) for k in kids)
+        assert all(a.t1 <= b.t0 for a, b in zip(kids, kids[1:]))
+        assert kids[1].n == overlap + n
+        assert [k.n for k in kids if k.name != "fec.decode"] == [None] * 3
+
+
 def test_tracer_nesting_range_and_bound(tracing, monkeypatch):
     monkeypatch.setattr(trace, "_buf", collections.deque(maxlen=4))
     top = trace.begin("a", 7, 3)
