@@ -101,7 +101,11 @@ failure of which exits non-zero:
     three kernels (``csrc/auto_fec.cu``) one launch a block each, counted
     like phase 3; the search on the card locks on a transform that undoes
     the channel, the locked blocks decode the planted bits, blocks 0-2
-    equal the CPU bit for bit; timed and profiled;
+    equal the CPU bit for bit; timed and profiled; then the cell's eight
+    passes side by side (``lrpt_streams``): eight such executors, each on
+    its own compute stream, dispatched in turn three deep, every output
+    bit-equal to its pass run alone; timed against the one-stream step
+    and profiled (``viterbi_warp`` kernels at once);
 13. the decoders path (``decoders_path``): ACARSDecoder
     (``csrc/acars_fsm.cu``), ManchesterDecode (``csrc/manchester_fsm.cu``)
     and two DPLLBitSyncs (``csrc/dpll_walk.cu``), each a one-block graph
@@ -333,6 +337,7 @@ from grbaz_tpu_torch.parallel.pipeline import StagePipeline, _wbfm_stages
 from grbaz_tpu_torch.parallel.tp import TPFIRDecimator
 from grbaz_tpu_torch.parallel.wbfm_bank import BankConfig, ShardedWBFMBank
 from grbaz_tpu_torch.utils import acars
+from radiobench.spans import covered
 
 FS = 3.2e6
 BLOCK = 1 << 20
@@ -2741,6 +2746,9 @@ PN_FLIP = 0.01
 LRPT_BLOCKS = 12         # the served FEC path's blocks: it locks by block 6
 LRPT_CPU_BLOCKS = 3      # of them, held to the port on the CPU
 LRPT_PORTS = ("pm", "bits", "ber", "state")
+LRPT_STREAMS = 8         # the lrpt cell's passes, an executor each
+LRPT_DEPTH = 3           # steps in flight an executor, as the cell's pump
+LRPT_ONE_STREAM_MS = 3.95  # lrpt_fec's one-stream graph step (PERF.md)
 DECODE_KERNELS = ("acars_fsm", "manchester_fsm", "dpll_walk")
 # the decoders path's pulse trains: (period, the DPLL's start, its gain)
 DPLL_TRAINS = ((100.3, 97.0, 0.1), (16.0, 15.5, 0.05))
@@ -3488,6 +3496,117 @@ def lrpt_path(dev):
               kernels=("viterbi_warp", "trace_map", "trace_bits",
                        "pairs_kernel", "ber_kernel", "search_kernel"))
     return launches
+
+
+def lrpt_stream_blocks(host, k, blocks):
+    """Pass ``k`` of LRPT_STREAMS: the scene's host symbols ``host`` from
+    block k on (cyclic), turned by 1j^k, as ``blocks`` blocks."""
+    x = np.roll(host, -k * FEC_BLOCK) * _ROTATIONS[k % 4]
+    return [x[b * FEC_BLOCK:(b + 1) * FEC_BLOCK].astype(np.complex64)
+            for b in range(blocks)]
+
+
+def interleaved(exs, feeds, depth):
+    """Each executor's outputs over its ``feeds`` (lists of host blocks),
+    the dispatches taken in turn over the executors, each keeping
+    ``depth`` steps in flight before it fetches its oldest."""
+    pend = [[] for _ in exs]
+    got = [[] for _ in exs]
+    for j in range(len(feeds[0])):
+        for k, ex in enumerate(exs):
+            if len(pend[k]) == depth:
+                got[k].append(ex.fetch(pend[k].pop(0)))
+            pend[k].append(ex.dispatch({"iq": feeds[k][j]}))
+    for k, ex in enumerate(exs):
+        got[k] += [ex.fetch(o) for o in pend[k]]
+    return got
+
+
+def at_once(intervals) -> float:
+    """Mean number of ``(start, end)`` intervals open over their union."""
+    union = covered(intervals)
+    return sum(b - a for a, b in intervals) / union if union else 0.0
+
+
+def lrpt_streams(dev):
+    """The lrpt cell's eight passes side by side: LRPT_STREAMS executors of
+    the lrpt graph (each with its own compute stream), dispatched in turn
+    LRPT_DEPTH deep before each fetch over LRPT_BLOCKS blocks of a pass
+    each (:func:`lrpt_stream_blocks`), after a reset right before the
+    first dispatch: every output (pm, bits, ber, state, counts) bit-equal
+    to the same pass run alone. Then the interleaved schedule timed (host
+    clock, the card synchronized at both ends: ms a step and Msym/s,
+    against lrpt_fec's one-stream step) and profiled: the mean number of
+    ``viterbi_warp`` kernels running at once over their union, the
+    streams they ran on, and the card's busy share."""
+    sym, _ = fec_scene(dev, LRPT_BLOCKS)
+    host = sym.cpu().numpy()
+    feeds = [lrpt_stream_blocks(host, k, LRPT_BLOCKS)
+             for k in range(LRPT_STREAMS)]
+
+    def executor():
+        return StreamExecutor(lrpt_graph(dev), {"iq": InputSpec(
+            (FEC_BLOCK,), "complex64", 72e3)}, device=dev)
+
+    alone = [[ex.step({"iq": x}) for x in feeds[k]]
+             for k, ex in enumerate(executor() for _ in feeds)]
+    exs = [executor() for _ in feeds]
+    for ex in exs:  # a warm-up step, then a reset just before the run
+        ex.step({"iq": feeds[0][0]})
+        ex.reset()
+    got = interleaved(exs, feeds, LRPT_DEPTH)
+    for k in range(LRPT_STREAMS):
+        for j in range(LRPT_BLOCKS):
+            for port in LRPT_PORTS:
+                (g, gc), (w, wc) = got[k][j][port], alone[k][j][port]
+                check(gc == wc and same_bits(torch.from_numpy(g[:gc]),
+                                             torch.from_numpy(w[:wc])),
+                      f"lrpt streams: pass {k} block {j} {port} differs "
+                      "from the pass run alone")
+    steps = LRPT_STREAMS * LRPT_BLOCKS
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        interleaved(exs, feeds, LRPT_DEPTH)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / steps)
+    ms = statistics.median(walls)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        interleaved(exs, feeds, LRPT_DEPTH)
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        os.remove(path)
+    dev_ev = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    warp = [e for e in dev_ev if "viterbi_warp" in e["name"]]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in warp]
+    lo = min(e["ts"] for e in dev_ev)
+    hi = max(e["ts"] + e["dur"] for e in dev_ev)
+    busy = covered([(e["ts"], e["ts"] + e["dur"]) for e in dev_ev])
+    check(len(warp) == steps, f"lrpt streams: {len(warp)} viterbi_warp "
+          f"launches profiled, not {steps}")
+    print(f"lrpt streams ({LRPT_STREAMS} executors, {LRPT_DEPTH} deep, "
+          f"{LRPT_BLOCKS} blocks a pass, a reset before the first dispatch): "
+          f"every output bit-equal to the pass run alone; step "
+          f"{ms:.4f} ms (host clock, median of 3 rounds: "
+          + ", ".join(f"{w:.4f}" for w in walls)
+          + f") = {FEC_BLOCK / ms / 1e3:.2f} Msym/s against "
+          f"{LRPT_ONE_STREAM_MS} ms one stream "
+          f"({LRPT_ONE_STREAM_MS / ms:.2f}x); profiled: viterbi_warp "
+          f"{at_once(spans):.2f} at once over their union "
+          f"({len({e.get('tid') for e in warp})} streams, "
+          f"{statistics.median(e['dur'] for e in warp) / 1e3:.4f} ms a "
+          f"launch), the card busy {100 * busy / (hi - lo):.1f}% of the "
+          f"profiled run ({card()})")
 
 
 def pn_graph(device):
@@ -5606,6 +5725,7 @@ def main() -> int:
     for name, n in lrpt_path(dev).items():
         if name in LRPT_KERNELS:
             launches[name] += n
+    lrpt_streams(dev)
     dec_launches = decoders_path(dev)
     for name in DECODE_KERNELS:
         launches[name] = dec_launches[name]

@@ -449,9 +449,9 @@ def test_dispatch_does_not_wait_for_the_card(dev):
 
 
 def test_executor_fetch_does_not_wait_for_later_work(dev):
-    """fetch brings a step's outputs back while work queued on the card
-    after the step (a sleep, as another executor's decode on the shared
-    stream would be) still runs: its copies wait for their step alone.
+    """fetch brings a step's outputs back while work queued after the step
+    on the executor's compute stream (a sleep, as its next steps in
+    flight would be) still runs: its copies wait for their step alone.
     The outputs equal the same step's before."""
     n = 1 << 14
     cfg = wbfm.WBFMConfig(block_size=n, center_freq=250e3, fused=True)
@@ -462,12 +462,13 @@ def test_executor_fetch_does_not_wait_for_later_work(dev):
     want = ex.step({"iq": x})  # warm-up: builds the kernel, fills the caches
     ex.reset()
     outs = ex.dispatch({"iq": x})
-    torch.cuda._sleep(int(2e9))  # ~1 s of card time queued behind the step
+    with torch.cuda.stream(ex._compute):
+        torch.cuda._sleep(int(2e9))  # ~1 s of card time behind the step
     t0 = time.perf_counter()
     got = ex.fetch(outs)
     host_s = time.perf_counter() - t0
     done = torch.cuda.Event()
-    done.record()
+    done.record(ex._compute)
     busy = not done.query()
     assert busy and host_s < 0.5, \
         f"fetch took {host_s:.3f} s; card still busy after it: {busy}"

@@ -149,6 +149,34 @@ def test_pump_queue_one_per_block(tracing, depth):
     assert all(s.parent is None for s in queue)
 
 
+def test_graph_span_counts_no_other_work_under_one_pump(tracing):
+    """``dispatch.graph``'s ``n``: the steps of other executors dispatched
+    and not yet fetched; one executor under a pump has none beside it."""
+    ex = _executor()
+    _pump_run(ex, _blocks(6))
+    graph = [s for s in trace.spans() if s.name == "dispatch.graph"]
+    assert len(graph) == 6 and [s.n for s in graph] == [0] * 6
+
+
+def test_graph_span_counts_other_executors_pending_steps(tracing):
+    """Three executors dispatched in turn twice over before any fetch: each
+    step starts beside the others' steps still pending, its own not
+    counted; a fetch takes its step out of the count."""
+    exs = [_executor() for _ in range(3)]
+    ins = _blocks(2)
+    outs = [ex.dispatch(ins[j]) for j in range(2) for ex in exs]
+    graph = [s for s in trace.spans() if s.name == "dispatch.graph"]
+    assert [(s.stream, s.n) for s in graph] == [
+        (ex.stream_id, n) for ex, n in zip(exs * 2, [0, 1, 2, 2, 3, 4])]
+    exs[1].fetch(outs[1])
+    exs[1].fetch(outs[4])
+    exs[0].dispatch(ins[0])
+    last = [s for s in trace.spans() if s.name == "dispatch.graph"][-1]
+    assert last.stream == exs[0].stream_id and last.n == 2
+    for ex in exs:
+        ex.reset()
+
+
 def test_profiler_session_arms_the_tracer():
     ex = _executor()
     ins = _blocks(3)
@@ -284,8 +312,8 @@ def test_tracer_nesting_range_and_bound(tracing, monkeypatch):
 
 @pytest.mark.cuda
 def test_off_on_the_card_adds_no_event(monkeypatch):
-    """The served path's CUDA events: the uploader's one a step with
-    tracing off, one more (the step's end) with it on."""
+    """The served path's CUDA events: the uploader's one a step, traced or
+    not; the step's end event is reused from the executor's pool."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     made = []
@@ -306,10 +334,22 @@ def test_off_on_the_card_adds_no_event(monkeypatch):
         ex.step(ins[2])
     finally:
         trace.disable()
-    assert len(made) == 3
+    assert len(made) == 2
     wait = [s for s in trace.spans() if s.name == "fetch.wait"]
     assert len(wait) == 1
     trace.clear()
+
+
+def _trace_split():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "trace_split.py"
+    spec = importlib.util.spec_from_file_location("trace_split", path)
+    ts_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ts_mod)
+    return ts_mod
 
 
 def test_trace_split_maps_the_trace_clock_by_both_markers():
@@ -317,15 +357,8 @@ def test_trace_split_maps_the_trace_clock_by_both_markers():
     the span open at its host time, the trace's clock mapped by the
     window's two markers: a launch 30 us before a span's end, read through
     a 40 ppm drift over 2 s (80 us at the end), stays in its span."""
-    import importlib.util
-    import pathlib
-
     from radiobench import spans as bench_spans
-    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
-        "trace_split.py"
-    spec = importlib.util.spec_from_file_location("trace_split", path)
-    ts_mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ts_mod)
+    ts_mod = _trace_split()
     Span = collections.namedtuple("Span", "name t0 t1")
     h_a, drift = 100.0, 1.0 + 40e-6
     marks = {bench_spans.Profile.START: h_a,
@@ -350,3 +383,18 @@ def test_trace_split_maps_the_trace_clock_by_both_markers():
     assert got["block.deemph"]["launches"] == 1
     assert got["block.deemph"]["device_ms"] == pytest.approx(0.004)
     assert "other" not in got
+
+
+def test_trace_split_counts_a_kernels_launches_at_once():
+    """``kernels_at_once``: a kernel's launch time over the union of its
+    launches (two overlapping, then one alone: 9 over 7); a kernel below
+    a tenth of the busy time and the copies are left out."""
+    from radiobench import spans as bench_spans
+    tr = bench_spans.Trace(0.0, 10.0, [
+        ("k", "kernel", 0.0, 4.0), ("k", "kernel", 2.0, 6.0),
+        ("k", "kernel", 8.0, 9.0), ("m", "kernel", 6.0, 6.1),
+        ("Memcpy", "gpu_memcpy", 1.0, 9.5)])
+    assert _trace_split().at_once(tr) == {"k": pytest.approx(9.0 / 7.0)}
+    one = bench_spans.Trace(0.0, 3.0, [("k", "kernel", 0.0, 1.0),
+                                       ("k", "kernel", 1.0, 2.0)])
+    assert _trace_split().at_once(one) == {"k": pytest.approx(1.0)}

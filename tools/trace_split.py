@@ -20,10 +20,14 @@ its start to the first device-to-host copy inside it, the device's busy
 time in that wait (other steps' work queued before the copy) and the
 copies' own device time (``fetch_copy``, ms a block); how many
 ``block.*`` ranges the profiler's exported trace holds
-(``block_ranges_in_trace``); and the CUDA API calls, kernel launches and
+(``block_ranges_in_trace``); the CUDA API calls, kernel launches and
 device ms a block of each ``block.*`` and each part of ``dispatch`` and
-``fetch`` (``per_leaf``). Run one seed a process: a second profiler
-session in one process can lose its kernels.
+``fetch`` (``per_leaf``); for each kernel that holds a tenth of the busy
+time, the mean number of its launches running at once over their union
+(``kernels_at_once``: 1 where they run one after another); and the mean
+of ``dispatch.graph``'s ``n``, the other executors' steps pending as a
+step launches (``graph_beside``). Run one seed a process: a second
+profiler session in one process can lose its kernels.
 
 ``cost``: untraced runs in pairs, one with the tracer enabled for the
 whole window and one without, alternating which goes first (one pair a
@@ -175,6 +179,20 @@ def per_leaf(events, marks, mine, blocks) -> dict:
             for k, d in sorted(out.items())}
 
 
+def at_once(tr, share=0.1) -> dict:
+    """Mean launches of a kernel running at once over their union, for
+    the kernels that hold ``share`` of the trace's busy time or more."""
+    from radiobench import spans as host
+    by = {}
+    for n, c, s, e in tr.events:
+        if c == "kernel":
+            by.setdefault(n, []).append((s, e))
+    busy = tr.busy_s
+    return {n: sum(e - s for s, e in iv) / host.covered(iv)
+            for n, iv in by.items()
+            if busy and sum(e - s for s, e in iv) >= share * busy}
+
+
 def _device():
     import torch
     if not torch.cuda.is_available():
@@ -234,7 +252,11 @@ def split(cell_name, seeds, seconds):
                 str(e.get("name", "")).startswith("block.")
                 for e in got["events"]),
             per_leaf=per_leaf(got["events"], got["marks"], mine, sum(
-                s.name == "executor.dispatch" for s in mine)))), flush=True)
+                s.name == "executor.dispatch" for s in mine)),
+            kernels_at_once=at_once(tr),
+            graph_beside=statistics.mean(
+                [s.n for s in mine if s.name == "dispatch.graph"
+                 and s.n is not None] or [0]))), flush=True)
 
 
 def span_cost_us(n=100000) -> float:
