@@ -1751,12 +1751,12 @@ def pump_phase(dev):
     torch.cuda.synchronize()
     torch.cuda._sleep(int(1e9))  # ~0.5 s of card time
     t0 = time.perf_counter()
-    outs = ex.dispatch(blocks[1])
+    step = ex.dispatch(blocks[1])
     host_ms = (time.perf_counter() - t0) * 1e3
     done = torch.cuda.Event()
     done.record()
     busy = not done.query()
-    ex.fetch(outs)
+    ex.fetch(step)
     print(f"dispatch returned in {host_ms:.3f} ms with the step still "
           f"queued on the card: {busy}")
     check(busy, "dispatch waited for the card")

@@ -36,9 +36,9 @@ current at the call, so what was made there before (the Blocks'
 constants, a warm-up) is ready before the first step reads it.
 ``fetch`` copies on the executor's copy stream after the step's end
 event: the copies wait for their step alone, not for the steps queued
-behind it. The output streams :meth:`StreamExecutor.dispatch` returns
-are valid only after that event: read them through ``fetch`` (or
-``step``), never directly from another stream.
+behind it. :meth:`StreamExecutor.dispatch` returns a :class:`Step`,
+which holds the step's outputs, still on the device and valid only
+after that event, for ``fetch`` (or ``step``) to read.
 
 Several executors are driven by as many host threads (a pump's runner
 each), and threads that call into torch and the driver a call at a time
@@ -58,11 +58,11 @@ is the call order.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import itertools
 import threading
-import weakref
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -85,58 +85,62 @@ class InputSpec:
 
 _META_FIELDS = ("abs_lo", "abs_hi", "epoch_sec", "epoch_frac", "flags", "seq")
 _STREAM_IDS = itertools.count()
-# stream_id -> that executor's steps dispatched and not yet fetched (its
-# ``_pending``), for ``dispatch.graph``'s count of the work beside a step
-_PENDING: Dict[int, dict] = {}
 # on the card, the host work of every executor's dispatch and fetch
 _HOST = threading.RLock()
+# every executor's steps dispatched and not yet fetched, changed under
+# _HOST: the work beside a step (``dispatch.graph``'s ``n``, ``fetch``'s sleep)
+_in_flight = 0
+
+
+def _count(k: int):
+    """Add ``k`` to every executor's steps in flight."""
+    global _in_flight
+    with _HOST:
+        _in_flight += k
+
+
+class Step:
+    """A dispatched step for :meth:`StreamExecutor.fetch`: its outputs (valid
+    after ``done``), dispatch index ``seq`` and end event (None on the CPU)."""
+    __slots__ = ("_outs", "seq", "done")
+
+    def __init__(self, outs, seq: int, done):
+        self._outs, self.seq, self.done = outs, seq, done
 
 
 class _Uploader:
-    """Two pinned host buffers for one input, used in turn (on the CPU
-    each block is simply copied: block states may keep views of it)."""
+    """Two pinned host buffers for one input and their uploads' events, used
+    in turn (on the CPU each block is copied: states may keep views of it)."""
 
     def __init__(self, spec: InputSpec, device: torch.device):
         self.device = device
-        self.bufs, self.done, self.turn = [], [None, None], 0
+        self.bufs, self.done, self.turn = [], [], 0
         if device.type == "cuda":
             dtype = torch.from_numpy(np.zeros(0, spec.dtype)).dtype
             self.bufs = [torch.empty(spec.shape, dtype=dtype,
                                      pin_memory=True) for _ in range(2)]
+            self.done = [torch.cuda.Event(blocking=True) for _ in range(2)]
 
     def ready(self):
         """Wait, asleep, until the buffer the next upload takes is free
         (its previous upload has finished)."""
-        done = self.done[self.turn]
-        if done is not None:
-            done.synchronize()
+        if self.done:
+            self.done[self.turn].synchronize()
 
-    def upload(self, x: np.ndarray, traced: bool = False) -> torch.Tensor:
-        span = trace.begin("dispatch.stage") if traced else None
-        if self.device.type != "cuda":
-            host = np.array(x)
-            if traced:
-                trace.end(span, host.nbytes)
-                span = trace.begin("dispatch.upload")
-            dev = torch.from_numpy(host)
-        else:
-            self.ready()
-            i, self.turn = self.turn, 1 - self.turn
-            self.bufs[i].numpy()[...] = x
-            if traced:
-                trace.end(span, x.nbytes)
-                span = trace.begin("dispatch.upload")
-            dev = self.bufs[i].to(self.device, non_blocking=True)
-            self.done[i] = torch.cuda.Event(blocking=True)
-            self.done[i].record()
-        if traced:
-            trace.end(span)
+    def stage(self, x: np.ndarray) -> torch.Tensor:
+        """The block copied to host memory of its own (after :meth:`ready`)."""
+        if not self.bufs:
+            return torch.from_numpy(np.array(x))
+        self.bufs[self.turn].numpy()[...] = x
+        return self.bufs[self.turn]
+
+    def upload(self, host: torch.Tensor) -> torch.Tensor:
+        """The staged block on the device, on the current stream."""
+        dev = host.to(self.device, non_blocking=True)
+        if self.done:
+            self.done[self.turn].record()
+            self.turn = 1 - self.turn
         return dev
-
-
-def _to_host(outs) -> Dict[str, Tuple[np.ndarray, int]]:
-    return {name: (s.data.cpu().numpy(), int(s.count))
-            for name, s in outs.items()}
 
 
 class StreamExecutor:
@@ -144,6 +148,8 @@ class StreamExecutor:
 
     def __init__(self, graph: Flowgraph, inputs: Dict[str, InputSpec],
                  device="cuda"):
+        # the Steps not yet fetched, oldest first; past 64 the oldest drops out
+        self._flight = collections.deque(maxlen=64)
         self.graph = graph
         self.device = resolve_device(device)
         self.inputs = dict(inputs)
@@ -151,6 +157,7 @@ class StreamExecutor:
         if missing:
             raise ValueError(f"no InputSpec for graph inputs {missing}")
         self._step_fn = graph.build_step()
+        self._names = {b.name for b in graph.blocks}
         self._uploaders = {name: _Uploader(spec, self.device)
                            for name, spec in self.inputs.items()}
         self._states = None
@@ -162,12 +169,11 @@ class StreamExecutor:
         self._compute = torch.cuda.Stream(self.device) if cuda else None
         self._copy = torch.cuda.Stream(self.device) if cuda else None
         self._host = _HOST if cuda else contextlib.nullcontext()
-        # id(outs) -> (seq, end-of-step event) of the steps not yet fetched
-        # (on the card, or traced)
-        self._pending = {}
-        _PENDING[self.stream_id] = self._pending
-        weakref.finalize(self, _PENDING.pop, self.stream_id, None)
         self._events = []  # end-of-step events free for reuse
+
+    def __del__(self):  # dropped with steps in flight: they leave the count
+        if self._flight:
+            _count(-len(self._flight))
 
     def _after_caller(self):
         """The compute stream as the current one (a no-op on the CPU),
@@ -183,18 +189,19 @@ class StreamExecutor:
             self._meta = {name: StreamMeta.start(
                 self.inputs[name].sample_rate, device=self.device)
                 for name in self.graph.in_ports}
-        self._pending.clear()
+        _count(-len(self._flight))
+        self._flight.clear()
         return self
 
     # -- stepping ----------------------------------------------------------
     def dispatch(self, ins: Dict[str, np.ndarray],
                  counts: Optional[Dict[str, int]] = None,
-                 params: Optional[Dict[str, Any]] = None):
-        """Queue one block on the card without waiting for it; returns
-        the output streams, still on the device, for :meth:`fetch`. Steps
-        chain through the states on the device, so several can be in
-        flight (:class:`~grbaz_tpu_torch.core.pump.StreamPump` keeps
-        ``inflight`` of them pending)."""
+                 params: Optional[Dict[str, Any]] = None) -> Step:
+        """Queue one block on the card without waiting for it; returns its
+        :class:`Step`, for :meth:`fetch`. Steps chain through the states
+        on the device, so several can be in flight
+        (:class:`~grbaz_tpu_torch.core.pump.StreamPump` keeps ``inflight``
+        of them pending)."""
         seq, self.seq = self.seq, self.seq + 1
         traced = trace.on()
         top = trace.begin("executor.dispatch", self.stream_id, seq) \
@@ -203,71 +210,69 @@ class StreamExecutor:
             self.reset()
         if params is not None:
             self.params = params
-        names = {b.name for b in self.graph.blocks}
-        unknown = set(self.params) - names
+        unknown = set(self.params) - self._names
         if unknown:
             raise KeyError(f"params for unknown blocks {sorted(unknown)}; "
-                           f"valid names: {sorted(names)}")
+                           f"valid names: {sorted(self._names)}")
         for up in self._uploaders.values():
             up.ready()
-        with self._host:
-            with torch.cuda.stream(self._compute):
-                outs = self._launch(ins, counts, traced)
-            if traced or self._copy is not None:
-                done = None
-                if self._copy is not None:  # the end of the step's launches
-                    done = self._events.pop() if self._events \
-                        else torch.cuda.Event(blocking=True)
-                    done.record(self._compute)
-                if len(self._pending) > 64:  # dispatched, never fetched
-                    self._pending.clear()
-                self._pending[id(outs)] = (seq, done)
-        if traced:
-            trace.end(top)
-        return outs
-
-    def _launch(self, ins, counts, traced: bool):
-        """The step's uploads and launches, on the current stream."""
-        span = trace.begin("dispatch.params") if traced else None
-        dev_params = params_from_numpy(self.params, self.device)
-        if traced:
-            trace.end(span)
-        streams = {}
-        for name, spec in self.inputs.items():
-            x = np.asarray(ins[name])
-            if x.dtype.name != spec.dtype or tuple(x.shape) != spec.shape:
-                raise ValueError(
-                    f"input {name}: expected {spec.dtype}{spec.shape}, "
-                    f"got {x.dtype.name}{x.shape}")
-            c = int((counts or {}).get(name, x.shape[0]))
-            data = self._uploaders[name].upload(x, traced)
-            span = trace.begin("dispatch.meta") if traced else None
-            count = scalar(c, torch.int32, self.device)
-            meta = self._meta[name]
-            streams[name] = Stream(data, count, meta)
-            self._meta[name] = meta.advanced(count)
+        with self._host, torch.cuda.stream(self._compute):
+            span = trace.begin("dispatch.params") if traced else None
+            dev_params = params_from_numpy(self.params, self.device)
             if traced:
                 trace.end(span)
+            streams = {}
+            for name, spec in self.inputs.items():
+                x = np.asarray(ins[name])
+                if x.dtype.name != spec.dtype or tuple(x.shape) != spec.shape:
+                    raise ValueError(
+                        f"input {name}: expected {spec.dtype}{spec.shape}, "
+                        f"got {x.dtype.name}{x.shape}")
+                c = int((counts or {}).get(name, x.shape[0]))
+                up = self._uploaders[name]
+                span = trace.begin("dispatch.stage") if traced else None
+                host = up.stage(x)
+                if traced:
+                    trace.end(span, x.nbytes)
+                    span = trace.begin("dispatch.upload")
+                data = up.upload(host)
+                if traced:
+                    trace.end(span)
+                span = trace.begin("dispatch.meta") if traced else None
+                count = scalar(c, torch.int32, self.device)
+                meta = self._meta[name]
+                streams[name] = Stream(data, count, meta)
+                self._meta[name] = meta.advanced(count)
+                if traced:
+                    trace.end(span)
+            if traced:
+                beside = _in_flight - len(self._flight)
+                span = trace.begin("dispatch.graph")
+            self._states, outs = self._step_fn(self._states, dev_params,
+                                               streams)
+            if traced:
+                trace.end(span, beside)
+            done = None
+            if self._copy is not None:  # the end of the step's launches
+                done = self._events.pop() if self._events \
+                    else torch.cuda.Event(blocking=True)
+                done.record(self._compute)
+            step = Step(outs, seq, done)
+            if len(self._flight) < self._flight.maxlen:  # else one drops out
+                _count(1)
+            self._flight.append(step)
         if traced:
-            beside = self._beside()
-            span = trace.begin("dispatch.graph")
-        self._states, outs = self._step_fn(self._states, dev_params, streams)
-        if traced:
-            trace.end(span, beside)
-        return outs
+            trace.end(top)
+        return step
 
-    def _beside(self) -> int:
-        """Steps of other executors dispatched and not yet fetched."""
-        return sum(map(len, list(_PENDING.values()))) - len(self._pending)
-
-    def fetch(self, outs) -> Dict[str, Tuple[np.ndarray, int]]:
+    def fetch(self, step: Step) -> Dict[str, Tuple[np.ndarray, int]]:
         """Wait for a dispatched step's outputs and bring them to the host."""
         traced = trace.on()
-        seq, done = self._pending.pop(id(outs), (-1, None))
+        done = step.done
         if traced:
-            top = trace.begin("executor.fetch", self.stream_id, seq)
+            top = trace.begin("executor.fetch", self.stream_id, step.seq)
             span = trace.begin("fetch.wait")
-        if done is not None and (traced or self._beside()):
+        if done is not None and (traced or _in_flight > len(self._flight)):
             done.synchronize()  # asleep, while other executors' work runs
         if traced:
             trace.end(span)
@@ -275,11 +280,13 @@ class StreamExecutor:
             span = trace.begin("fetch.copy") if traced else None
             if done is not None:
                 self._copy.wait_event(done)
-                with torch.cuda.stream(self._copy):
-                    got = _to_host(outs)
                 self._events.append(done)
-            else:
-                got = _to_host(outs)
+            with torch.cuda.stream(self._copy):
+                got = {name: (s.data.cpu().numpy(), int(s.count))
+                       for name, s in step._outs.items()}
+            if step in self._flight:  # not dropped by reset, or as the oldest
+                self._flight.remove(step)
+                _count(-1)
             if traced:
                 trace.end(span, sum(d.nbytes for d, _ in got.values()))
         if traced:

@@ -45,14 +45,6 @@ log = logging.getLogger(__name__)
 _clock = time.perf_counter
 
 
-class _Stamped:
-    """A queued block with the times of its source call and its put."""
-    __slots__ = ("blk", "t_source", "t_put")
-
-    def __init__(self, blk, t_source: float, t_put: float):
-        self.blk, self.t_source, self.t_put = blk, t_source, t_put
-
-
 class StreamPump:
     def __init__(self, executor, source: Callable[[], Optional[dict]],
                  sinks: Dict[str, Callable], depth: int = 2,
@@ -119,23 +111,24 @@ class StreamPump:
             except Exception:  # a failing source reads as "no data yet"
                 log.exception("StreamPump source raised")
                 blk = None
-            if t is not None:
-                if blk is None:
-                    trace.add("pump.source", self._stream, -1, t, _clock())
-                else:
-                    blk = _Stamped(blk, t, _clock())
+            stamp = None if t is None else (t, _clock())  # source call, put
             if blk is None:
+                if stamp is not None:
+                    trace.add("pump.source", self._stream, -1, *stamp)
                 if self.zero_fill:
-                    blk = self._zero_block
+                    blk, stamp = self._zero_block, None
                     with self._lock:
                         self.underruns += 1
                 else:
                     time.sleep(self.poll)
                     continue
+            # a source's (ins, counts) pair is a partial block
+            ins, counts = blk if isinstance(blk, tuple) else (blk, None)
+            item = (ins, counts, stamp)
             if self.drop:
                 while True:
                     try:
-                        self._q.put_nowait(blk)
+                        self._q.put_nowait(item)
                         break
                     except queue.Full:
                         try:  # drop the oldest: real-time mode
@@ -147,7 +140,7 @@ class StreamPump:
             else:
                 while self._run:  # back-pressure: wait for space
                     try:
-                        self._q.put(blk, timeout=self.poll)
+                        self._q.put(item, timeout=self.poll)
                         break
                     except queue.Full:
                         continue
@@ -156,30 +149,28 @@ class StreamPump:
 
     def _deliver(self, pend):
         """Fetch the oldest dispatched step and hand it to the sinks."""
-        traced = trace.on()
-        seq = self.ex.seq - len(pend) if traced else -1
-        outs = self.ex.fetch(pend.popleft())
-        span = trace.begin("pump.sinks", self._stream, seq) if traced else None
+        step = pend.popleft()
+        outs = self.ex.fetch(step)
+        span = trace.begin("pump.sinks", self._stream, step.seq) \
+            if trace.on() else None
         for name, sink in self.sinks.items():
             if name in outs:
                 data, count = outs[name]
                 sink(data, count)
-        if traced:
+        if span is not None:
             trace.end(span)
         with self._lock:
             self.blocks_out += 1
 
-    def _dispatch(self, blk):
-        if type(blk) is _Stamped:  # queued while tracing recorded
-            t, seq = _clock(), self.ex.seq
-            trace.add("pump.source", self._stream, seq, blk.t_source,
-                      blk.t_put)
-            trace.add("pump.queue", self._stream, seq, blk.t_put, t,
-                      self._q.qsize())
-            blk = blk.blk
-        if isinstance(blk, tuple):  # (blocks, counts): a partial block
-            return self.ex.dispatch(*blk)
-        return self.ex.dispatch(blk)
+    def _dispatch(self, item):
+        ins, counts, stamp = item
+        if stamp is not None:  # queued while tracing recorded
+            t, n = _clock(), self._q.qsize()
+        step = self.ex.dispatch(ins, counts)
+        if stamp is not None:
+            trace.add("pump.source", self._stream, step.seq, *stamp)
+            trace.add("pump.queue", self._stream, step.seq, stamp[1], t, n)
+        return step
 
     def _run_loop(self):
         pend = collections.deque()
@@ -187,23 +178,23 @@ class StreamPump:
             while self._run:
                 while len(pend) < self.inflight:
                     try:
-                        blk = self._q.get_nowait()
+                        item = self._q.get_nowait()
                     except queue.Empty:
                         break
-                    pend.append(self._dispatch(blk))
+                    pend.append(self._dispatch(item))
                 if pend:
                     self._deliver(pend)
                 else:
                     span = trace.begin("pump.idle", self._stream) \
                         if trace.on() else None
                     try:
-                        blk = self._q.get(timeout=self.poll)
+                        item = self._q.get(timeout=self.poll)
                     except queue.Empty:
-                        blk = None
+                        item = None
                     if span is not None:
                         trace.end(span)
-                    if blk is not None:
-                        pend.append(self._dispatch(blk))
+                    if item is not None:
+                        pend.append(self._dispatch(item))
             while pend:  # drain in-flight work on stop
                 self._deliver(pend)
         except BaseException as e:  # handed to stop(), which re-raises it

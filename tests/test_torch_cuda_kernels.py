@@ -430,14 +430,14 @@ def test_dispatch_does_not_wait_for_the_card(dev):
     torch.cuda.synchronize()
     torch.cuda._sleep(int(2e9))  # ~1 s of card time
     t0 = time.perf_counter()
-    outs = ex.dispatch({"iq": x})
+    step = ex.dispatch({"iq": x})
     host_s = time.perf_counter() - t0
     done = torch.cuda.Event()
     done.record()
     busy = not done.query()
     assert busy and host_s < 0.5, \
         f"dispatch took {host_s:.3f} s; card still busy after it: {busy}"
-    quad_off = ex.fetch(outs)["quad"][0]
+    quad_off = ex.fetch(step)["quad"][0]
     ex.params["frontend"] = dict(ex.params["frontend"],
                                  **wbfm.WBFMFrontend.freq_params(250e3, FS))
     ex.step({"iq": x})  # tail and phase settle on the new tuning
@@ -461,11 +461,11 @@ def test_executor_fetch_does_not_wait_for_later_work(dev):
     x = np.exp(2j * np.pi * 250e3 / FS * np.arange(n)).astype(np.complex64)
     want = ex.step({"iq": x})  # warm-up: builds the kernel, fills the caches
     ex.reset()
-    outs = ex.dispatch({"iq": x})
+    step = ex.dispatch({"iq": x})
     with torch.cuda.stream(ex._compute):
         torch.cuda._sleep(int(2e9))  # ~1 s of card time behind the step
     t0 = time.perf_counter()
-    got = ex.fetch(outs)
+    got = ex.fetch(step)
     host_s = time.perf_counter() - t0
     done = torch.cuda.Event()
     done.record(ex._compute)

@@ -3,6 +3,7 @@ the pump, the executor's dispatch and fetch, one span per Block; off by
 default, armed by a profiler session, on the benchmark's host clock."""
 
 import collections
+import gc
 import threading
 import time
 
@@ -164,12 +165,12 @@ def test_graph_span_counts_other_executors_pending_steps(tracing):
     counted; a fetch takes its step out of the count."""
     exs = [_executor() for _ in range(3)]
     ins = _blocks(2)
-    outs = [ex.dispatch(ins[j]) for j in range(2) for ex in exs]
+    steps = [ex.dispatch(ins[j]) for j in range(2) for ex in exs]
     graph = [s for s in trace.spans() if s.name == "dispatch.graph"]
     assert [(s.stream, s.n) for s in graph] == [
         (ex.stream_id, n) for ex, n in zip(exs * 2, [0, 1, 2, 2, 3, 4])]
-    exs[1].fetch(outs[1])
-    exs[1].fetch(outs[4])
+    exs[1].fetch(steps[1])
+    exs[1].fetch(steps[4])
     exs[0].dispatch(ins[0])
     last = [s for s in trace.spans() if s.name == "dispatch.graph"][-1]
     assert last.stream == exs[0].stream_id and last.n == 2
@@ -310,10 +311,80 @@ def test_tracer_nesting_range_and_bound(tracing, monkeypatch):
     assert trace.spans() == []
 
 
+def _plus_one(n=64):
+    """An executor of one stateless Block, ``y = x + 1``, on the CPU."""
+    from grbaz_tpu_torch.core.block import FnBlock
+    from grbaz_tpu_torch.core.graph import Flowgraph
+
+    fg = Flowgraph("plus")
+    blk = FnBlock(lambda x: x + 1, name="plus")
+    fg.input("x", blk)
+    fg.output("y", blk)
+    return StreamExecutor(fg, {"x": InputSpec((n,), "float32")}, device="cpu")
+
+
+def _beside_count():
+    """``dispatch.graph``'s ``n`` of one traced step of a new executor:
+    the steps every other executor has in flight."""
+    ex = _executor()
+    trace.clear()
+    trace.enable()
+    try:
+        ex.step(_blocks(1)[0])
+    finally:
+        trace.disable()
+    n, = [s.n for s in trace.spans() if s.name == "dispatch.graph"]
+    trace.clear()
+    return n
+
+
+def test_steps_fetched_out_of_dispatch_order_return_their_own():
+    """Each dispatched step's handle brings back that step's outputs,
+    fetched in any order; the states chain in dispatch order."""
+    ins = _blocks(4, seed=11)
+    ref, ex = _executor(), _executor()
+    want = [ref.step(b) for b in ins]
+    steps = [ex.dispatch(b) for b in ins]
+    assert [s.seq for s in steps] == [0, 1, 2, 3]
+    got = {j: ex.fetch(steps[j]) for j in (2, 0, 3, 1)}
+    for j, w in enumerate(want):
+        assert got[j].keys() == w.keys()
+        for port, (data, count) in w.items():
+            assert got[j][port][1] == count
+            np.testing.assert_array_equal(got[j][port][0], data)
+
+
+def test_unfetched_steps_are_bounded_and_reset_takes_them_out():
+    """Steps dispatched and never fetched: an executor keeps at most 64 of
+    them in flight however many it dispatches (the oldest drops out, and
+    can still be fetched); a reset takes them out of the count, and so
+    does dropping the executor."""
+    base = _beside_count()
+    ex = _plus_one()
+    xs = [np.full(64, j, np.float32) for j in range(200)]
+    steps = [ex.dispatch({"x": x}) for x in xs]
+    assert len(ex._flight) == 64
+    assert _beside_count() == base + 64
+    (y, count), = ex.fetch(steps[0]).values()  # dropped out, still fetched
+    assert count == 64 and (y == 1).all()
+    assert _beside_count() == base + 64
+    (y, _), = ex.fetch(steps[-1]).values()
+    assert (y == 200).all()
+    assert _beside_count() == base + 63
+    ex.reset()
+    assert len(ex._flight) == 0 and _beside_count() == base
+    ex.dispatch({"x": xs[0]})
+    assert _beside_count() == base + 1
+    del ex, steps
+    gc.collect()
+    assert _beside_count() == base
+
+
 @pytest.mark.cuda
 def test_off_on_the_card_adds_no_event(monkeypatch):
-    """The served path's CUDA events: the uploader's one a step, traced or
-    not; the step's end event is reused from the executor's pool."""
+    """The served path's CUDA events: the uploader's two and the step's
+    end event are made once and recorded again each step, traced or not
+    (the end event from the executor's pool)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     made = []
@@ -327,14 +398,14 @@ def test_off_on_the_card_adds_no_event(monkeypatch):
     ex.step(ins[0])
     monkeypatch.setattr(torch.cuda, "Event", count)
     ex.step(ins[1])
-    assert len(made) == 1
+    assert len(made) == 0
     trace.clear()
     trace.enable()
     try:
         ex.step(ins[2])
     finally:
         trace.disable()
-    assert len(made) == 2
+    assert len(made) == 0
     wait = [s for s in trace.spans() if s.name == "fetch.wait"]
     assert len(wait) == 1
     trace.clear()
