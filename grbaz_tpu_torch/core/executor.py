@@ -4,9 +4,13 @@
 * It owns the source metadata (absolute sample counters, sequence
   numbers) as device state, so stream time stays exact without host work.
 * Block states stay on the device between steps.
-* Inputs are copied in their own dtype into pinned host buffers and
-  uploaded with ``non_blocking=True``; two buffers per input alternate,
-  so the next block's copy never overwrites one still in flight.
+* Inputs are copied in their own dtype into pinned host slots and
+  uploaded with ``non_blocking=True``. Each input has a ring of slots; a
+  slot is written again only once the upload that last read it has
+  finished. :meth:`StreamExecutor.stage` makes that copy ahead of the
+  dispatch, on the caller's thread (a pump's feeder), and
+  :meth:`StreamExecutor.dispatch` takes its :class:`Staged` block or, given
+  raw arrays, stages them itself.
 * Outputs come back with their valid counts; ``counts=`` marks a
   partial last block.
 * ``params`` is a host-side dict the caller may change between steps
@@ -19,8 +23,9 @@
   (``core.checkpoint``, the JAX package's file layout).
 * While tracing records (``core.trace``), ``dispatch`` and ``fetch``
   record their parts as spans of the executor's ``stream_id`` and the
-  block's dispatch index ``seq``: ``dispatch.params``, ``dispatch.stage``
-  (the copy into the pinned buffer), ``dispatch.upload``,
+  block's dispatch index ``seq``: ``dispatch.stage`` (for raw arrays the
+  copy into a pinned slot, ``n`` its bytes; for a staged block what is left
+  of staging, ``n`` 0), ``dispatch.params``, ``dispatch.upload``,
   ``dispatch.meta`` and ``dispatch.graph`` (the step's launches; ``n``:
   the steps of other executors dispatched and not yet fetched as they
   start, the work that can run beside them), then ``fetch.wait`` (on a
@@ -46,14 +51,15 @@ in turn slow each other down: on an H100's host, eight lrpt executors
 gave 875 steps a second from one thread and 177 from eight. So on the
 card the host work of ``dispatch`` and ``fetch`` (uploads, launches,
 copies) takes one lock that every executor of the process shares, and
-the waits on the card come before it, on events that put the thread to
-sleep (``blocking=True``): the wait for the pinned buffer's previous
-upload, and ``fetch``'s wait for its step while other executors have
-steps in flight (alone, an executor's copies wait for the step
-themselves, without the sleep's wake-up). The spans of the lock's turn
-are the parts of ``executor.dispatch`` and ``executor.fetch`` that no
-child covers. On the CPU there are no streams and no lock, and the order
-is the call order.
+the staging and the waits on the card come before it, the waits on
+events that put the thread to sleep (``blocking=True``): staging's wait
+for its slot's last upload, and ``fetch``'s wait for its step while
+other executors have steps in flight (alone, an executor's copies wait
+for the step themselves, without the sleep's wake-up). The spans of the
+lock's turn are the parts of ``executor.dispatch`` and
+``executor.fetch`` that no child covers. On the CPU there are no
+streams, no slots and no lock: each block is copied afresh (states may
+keep views of it), and the order is the call order.
 """
 
 from __future__ import annotations
@@ -101,46 +107,83 @@ def _count(k: int):
 
 class Step:
     """A dispatched step for :meth:`StreamExecutor.fetch`: its outputs (valid
-    after ``done``), dispatch index ``seq`` and end event (None on the CPU)."""
-    __slots__ = ("_outs", "seq", "done")
+    after ``done``), dispatch index ``seq``, end event (None on the CPU) and
+    the :class:`Staged` block it uploaded (its slots; each slot's ``done``
+    event in its ring is that upload's until the slot is taken again)."""
+    __slots__ = ("_outs", "seq", "done", "staged")
 
-    def __init__(self, outs, seq: int, done):
+    def __init__(self, outs, seq: int, done, staged):
         self._outs, self.seq, self.done = outs, seq, done
+        self.staged = staged
 
 
-class _Uploader:
-    """Two pinned host buffers for one input and their uploads' events, used
-    in turn (on the CPU each block is copied: states may keep views of it)."""
+class _Slots:
+    """The ring of pinned host slots of one input and the events of their
+    last uploads. A slot is taken, written, and given back once its upload
+    is queued (or, unused, by :meth:`Staged.release`); the slot given back
+    first is taken first, and written only after its last upload has
+    finished. On the CPU there are no slots."""
 
     def __init__(self, spec: InputSpec, device: torch.device):
-        self.device = device
-        self.bufs, self.done, self.turn = [], [], 0
-        if device.type == "cuda":
-            dtype = torch.from_numpy(np.zeros(0, spec.dtype)).dtype
-            self.bufs = [torch.empty(spec.shape, dtype=dtype,
-                                     pin_memory=True) for _ in range(2)]
-            self.done = [torch.cuda.Event(blocking=True) for _ in range(2)]
+        self.spec = spec
+        self.cuda = device.type == "cuda"
+        self.bufs, self.done = [], []
+        self.free = collections.deque()  # slot indices, oldest given back first
+        self.lock = threading.Lock()
 
-    def ready(self):
-        """Wait, asleep, until the buffer the next upload takes is free
-        (its previous upload has finished)."""
-        if self.done:
-            self.done[self.turn].synchronize()
+    def fill(self, x: np.ndarray, size: int):
+        """``(host tensor, slot)``: the block copied to host memory of its
+        own. On the card into a slot of a ring of at least ``size`` slots
+        (one more where every slot is held), once that slot's last upload
+        has finished (asleep); on the CPU a fresh copy, slot None."""
+        if not self.cuda:
+            return torch.from_numpy(np.array(x)), None
+        with self.lock:
+            while len(self.bufs) < size or not self.free:
+                self.free.append(len(self.bufs))
+                self.bufs.append(torch.empty(
+                    self.spec.shape, pin_memory=True,
+                    dtype=torch.from_numpy(np.zeros(0, self.spec.dtype)).dtype))
+                self.done.append(torch.cuda.Event(blocking=True))
+            i = self.free.popleft()
+        if not self.done[i].query():  # (a finished one costs no GIL handoff)
+            self.done[i].synchronize()
+        self.bufs[i].numpy()[...] = x
+        return self.bufs[i], i
 
-    def stage(self, x: np.ndarray) -> torch.Tensor:
-        """The block copied to host memory of its own (after :meth:`ready`)."""
-        if not self.bufs:
-            return torch.from_numpy(np.array(x))
-        self.bufs[self.turn].numpy()[...] = x
-        return self.bufs[self.turn]
+    def give(self, i: int):
+        with self.lock:
+            self.free.append(i)
 
-    def upload(self, host: torch.Tensor) -> torch.Tensor:
-        """The staged block on the device, on the current stream."""
-        dev = host.to(self.device, non_blocking=True)
-        if self.done:
-            self.done[self.turn].record()
-            self.turn = 1 - self.turn
-        return dev
+
+class Staged:
+    """One block copied into host memory of its own by
+    :meth:`StreamExecutor.stage`, for one :meth:`StreamExecutor.dispatch` of
+    the same executor: each input's host tensor and slot (None on the CPU),
+    valid count and the bytes copied. Its slots stay held until the
+    dispatch has queued their uploads, or :meth:`release` gives them back."""
+    __slots__ = ("owner", "hosts", "slots", "counts", "nbytes")
+
+    def __init__(self, owner, hosts, slots, counts, nbytes):
+        self.owner, self.hosts, self.slots = owner, hosts, slots
+        self.counts, self.nbytes = counts, nbytes
+
+    def take(self, ex) -> Dict[str, torch.Tensor]:
+        """The host tensors, once, for ``ex``'s dispatch."""
+        if self.owner is not ex:
+            raise ValueError("a block staged by another executor")
+        if self.hosts is None:
+            raise ValueError("a staged block already dispatched or released")
+        hosts, self.hosts = self.hosts, None
+        return hosts
+
+    def release(self):
+        """Give the slots back unused (a block dropped, never dispatched)."""
+        if self.hosts is not None:
+            self.hosts = None
+            for name, i in self.slots.items():
+                if i is not None:
+                    self.owner._slots[name].give(i)
 
 
 class StreamExecutor:
@@ -158,8 +201,8 @@ class StreamExecutor:
             raise ValueError(f"no InputSpec for graph inputs {missing}")
         self._step_fn = graph.build_step()
         self._names = {b.name for b in graph.blocks}
-        self._uploaders = {name: _Uploader(spec, self.device)
-                           for name, spec in self.inputs.items()}
+        self._slots = {name: _Slots(spec, self.device)
+                       for name, spec in self.inputs.items()}
         self._states = None
         self._meta = None
         self.params = graph.init_params()  # host-side, caller may mutate
@@ -194,12 +237,38 @@ class StreamExecutor:
         return self
 
     # -- stepping ----------------------------------------------------------
-    def dispatch(self, ins: Dict[str, np.ndarray],
-                 counts: Optional[Dict[str, int]] = None,
+    def stage(self, ins: Dict[str, np.ndarray],
+              counts: Optional[Dict[str, int]] = None,
+              slots: int = 2) -> Staged:
+        """Copy one block into host memory of its own, ahead of its
+        :meth:`dispatch`: on the card into the next free pinned slot of each
+        input's ring, once that slot's last upload has finished (asleep),
+        outside the host lock. ``slots``: the least number of slots the
+        ring keeps, at least the staged blocks the caller holds plus the
+        steps it keeps in flight plus one, so that no copy waits.
+        ``counts`` marks a partial block, as in :meth:`dispatch`."""
+        xs = {}
+        for name, spec in self.inputs.items():
+            x = xs[name] = np.asarray(ins[name])
+            if x.dtype.name != spec.dtype or tuple(x.shape) != spec.shape:
+                raise ValueError(
+                    f"input {name}: expected {spec.dtype}{spec.shape}, "
+                    f"got {x.dtype.name}{x.shape}")
+        hosts, held = {}, {}
+        for name, x in xs.items():
+            hosts[name], held[name] = self._slots[name].fill(x, slots)
+        return Staged(self, hosts, held,
+                      {name: int((counts or {}).get(name, x.shape[0]))
+                       for name, x in xs.items()},
+                      sum(x.nbytes for x in xs.values()))
+
+    def dispatch(self, ins, counts: Optional[Dict[str, int]] = None,
                  params: Optional[Dict[str, Any]] = None) -> Step:
         """Queue one block on the card without waiting for it; returns its
-        :class:`Step`, for :meth:`fetch`. Steps chain through the states
-        on the device, so several can be in flight
+        :class:`Step`, for :meth:`fetch`. ``ins`` is a :class:`Staged` block
+        of :meth:`stage` (which carries its counts) or a dict of host
+        arrays, staged here. Steps chain through the states on the
+        device, so several can be in flight
         (:class:`~grbaz_tpu_torch.core.pump.StreamPump` keeps ``inflight``
         of them pending)."""
         seq, self.seq = self.seq, self.seq + 1
@@ -214,32 +283,34 @@ class StreamExecutor:
         if unknown:
             raise KeyError(f"params for unknown blocks {sorted(unknown)}; "
                            f"valid names: {sorted(self._names)}")
-        for up in self._uploaders.values():
-            up.ready()
+        span = trace.begin("dispatch.stage") if traced else None
+        if isinstance(ins, Staged):
+            if counts is not None:
+                raise ValueError("a staged block carries its own counts")
+            staged, copied = ins, 0
+        else:
+            staged = self.stage(ins, counts)
+            copied = staged.nbytes
+        hosts = staged.take(self)
+        if traced:
+            trace.end(span, copied)
         with self._host, torch.cuda.stream(self._compute):
             span = trace.begin("dispatch.params") if traced else None
             dev_params = params_from_numpy(self.params, self.device)
             if traced:
                 trace.end(span)
             streams = {}
-            for name, spec in self.inputs.items():
-                x = np.asarray(ins[name])
-                if x.dtype.name != spec.dtype or tuple(x.shape) != spec.shape:
-                    raise ValueError(
-                        f"input {name}: expected {spec.dtype}{spec.shape}, "
-                        f"got {x.dtype.name}{x.shape}")
-                c = int((counts or {}).get(name, x.shape[0]))
-                up = self._uploaders[name]
-                span = trace.begin("dispatch.stage") if traced else None
-                host = up.stage(x)
-                if traced:
-                    trace.end(span, x.nbytes)
-                    span = trace.begin("dispatch.upload")
-                data = up.upload(host)
+            for name, host in hosts.items():
+                span = trace.begin("dispatch.upload") if traced else None
+                data = host.to(self.device, non_blocking=True)
+                i = staged.slots[name]
+                if i is not None:  # the slot is free once this upload is
+                    self._slots[name].done[i].record()
+                    self._slots[name].give(i)
                 if traced:
                     trace.end(span)
                 span = trace.begin("dispatch.meta") if traced else None
-                count = scalar(c, torch.int32, self.device)
+                count = scalar(staged.counts[name], torch.int32, self.device)
                 meta = self._meta[name]
                 streams[name] = Stream(data, count, meta)
                 self._meta[name] = meta.advanced(count)
@@ -257,7 +328,7 @@ class StreamExecutor:
                 done = self._events.pop() if self._events \
                     else torch.cuda.Event(blocking=True)
                 done.record(self._compute)
-            step = Step(outs, seq, done)
+            step = Step(outs, seq, done, staged)
             if len(self._flight) < self._flight.maxlen:  # else one drops out
                 _count(1)
             self._flight.append(step)

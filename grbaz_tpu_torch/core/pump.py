@@ -3,28 +3,34 @@
 
 :class:`StreamPump` runs two threads around a bounded block queue:
 
-* the **feeder** pulls blocks from the source callable into the queue.
-  A full queue applies back-pressure (blocking mode) or drops the oldest
-  block with an overrun counter (``drop=True``, the real-time mode);
+* the **feeder** pulls blocks from the source callable, stages each into
+  host memory of the executor's own (:meth:`StreamExecutor.stage`: on the
+  card a pinned slot, copied while the runner works on earlier blocks)
+  and puts it in the queue. A full queue applies back-pressure (blocking
+  mode) or drops the oldest block with an overrun counter (``drop=True``,
+  the real-time mode);
 * the **runner** keeps up to ``inflight`` steps dispatched on the card
-  (``executor.dispatch`` does not wait for it) before fetching the
-  oldest, so the host's upload of the next blocks overlaps the card's
-  work on earlier ones, and hands each named output ``(data, count)``
-  to its sink.
+  (``executor.dispatch`` does not wait for it; a staged block is only
+  uploaded) before fetching the oldest, so the host's upload of the next
+  blocks overlaps the card's work on earlier ones, and hands each named
+  output ``(data, count)`` to its sink.
 
 A source returns a dict of input blocks, or a ``(blocks, counts)`` pair
 for a partial block (``counts`` as :meth:`StreamExecutor.dispatch` takes
-them: the last block of a stream that ends mid-block). A source
+them: the last block of a stream that ends mid-block). Its arrays are
+copied before the pump calls it again, so it may reuse them. A source
 returning ``None`` means "no data yet": with ``zero_fill=True`` the pump
 feeds a zero block (underrun counter + 1) so sinks never stall, the
-non_blocker semantic; otherwise the feeder retries. :meth:`stop`
-drains the dispatched steps, and re-raises an error of the runner.
+non_blocker semantic; otherwise the feeder retries. :meth:`stop` drains
+the dispatched steps, gives back the slots of the blocks still queued,
+and re-raises an error of the runner or of the staging.
 
 While tracing records (``core.trace``) the pump records, under the
 executor's ``stream_id`` and the block's dispatch index: ``pump.source``
 (the feeder's call into the source; a call that brings no block has
-index -1), ``pump.queue`` (from the feeder offering a block to the queue
-to the runner taking it; ``n`` the blocks left queued behind it),
+index -1), ``pump.stage`` (the feeder's copy of the block, ``n`` its
+bytes), ``pump.queue`` (from the feeder offering the staged block to the
+queue to the runner taking it; ``n`` the blocks left queued behind it),
 ``pump.idle`` (the runner waiting on an empty queue) and ``pump.sinks``.
 """
 
@@ -40,6 +46,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from grbaz_tpu_torch.core import trace
+from grbaz_tpu_torch.core.executor import Staged
 
 log = logging.getLogger(__name__)
 _clock = time.perf_counter
@@ -59,6 +66,9 @@ class StreamPump:
         self.drop = bool(drop)
         self.zero_fill = bool(zero_fill)
         self.poll = float(poll_interval)
+        # staged blocks held at once: queued, in the feeder's and the
+        # runner's hands, and the slots of the steps in flight
+        self._slots = self.depth + self.inflight + 1
         self._q: queue.Queue = queue.Queue(maxsize=self.depth)
         self._run = False
         self._feeder: Optional[threading.Thread] = None
@@ -69,6 +79,7 @@ class StreamPump:
         self.blocks_out = 0
         self.underruns = 0
         self.overruns = 0
+        self.staged = 0
         self._zero_block = {
             name: np.zeros(spec.shape, spec.dtype)
             for name, spec in executor.inputs.items()
@@ -86,12 +97,18 @@ class StreamPump:
 
     def stop(self, timeout: float = 5.0):
         """Stop both threads; the runner first fetches and delivers every
-        step it has dispatched. Raises what the runner raised, if any."""
+        step it has dispatched, and the blocks still queued give their slots
+        back. Raises what the runner or the staging raised, if any."""
         self._run = False
         for t in (self._feeder, self._runner):
             if t is not None:
                 t.join(timeout=timeout)
         self._feeder = self._runner = None
+        while True:
+            try:
+                self._q.get_nowait()[0].release()
+            except queue.Empty:
+                break
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -100,23 +117,24 @@ class StreamPump:
         with self._lock:
             return dict(blocks_in=self.blocks_in, blocks_out=self.blocks_out,
                         underruns=self.underruns, overruns=self.overruns,
-                        queued=self._q.qsize())
+                        staged=self.staged, queued=self._q.qsize())
 
     # -- threads ---------------------------------------------------------
     def _feed_loop(self):
         while self._run:
-            t = _clock() if trace.on() else None
+            traced = trace.on()
+            t = _clock() if traced else None
             try:
                 blk = self.source()
             except Exception:  # a failing source reads as "no data yet"
                 log.exception("StreamPump source raised")
                 blk = None
-            stamp = None if t is None else (t, _clock())  # source call, put
+            src = None if t is None else (t, _clock())  # the source call
             if blk is None:
-                if stamp is not None:
-                    trace.add("pump.source", self._stream, -1, *stamp)
+                if src is not None:
+                    trace.add("pump.source", self._stream, -1, *src)
                 if self.zero_fill:
-                    blk, stamp = self._zero_block, None
+                    blk, src = self._zero_block, None
                     with self._lock:
                         self.underruns += 1
                 else:
@@ -124,7 +142,14 @@ class StreamPump:
                     continue
             # a source's (ins, counts) pair is a partial block
             ins, counts = blk if isinstance(blk, tuple) else (blk, None)
-            item = (ins, counts, stamp)
+            t = _clock() if traced else None
+            try:
+                staged = self.ex.stage(ins, counts, slots=self._slots)
+            except Exception as e:  # a block the executor refuses: stop()
+                self._error, self._run = e, False
+                break
+            stg = None if t is None else (t, _clock(), staged.nbytes)
+            item = (staged, src, stg)
             if self.drop:
                 while True:
                     try:
@@ -132,18 +157,20 @@ class StreamPump:
                         break
                     except queue.Full:
                         try:  # drop the oldest: real-time mode
-                            self._q.get_nowait()
+                            self._q.get_nowait()[0].release()
                             with self._lock:
                                 self.overruns += 1
                         except queue.Empty:
                             pass
             else:
-                while self._run:  # back-pressure: wait for space
+                while True:  # back-pressure: wait for space
                     try:
                         self._q.put(item, timeout=self.poll)
                         break
                     except queue.Full:
-                        continue
+                        if not self._run:
+                            staged.release()
+                            break
             with self._lock:
                 self.blocks_in += 1
 
@@ -163,13 +190,17 @@ class StreamPump:
             self.blocks_out += 1
 
     def _dispatch(self, item):
-        ins, counts, stamp = item
-        if stamp is not None:  # queued while tracing recorded
+        staged, src, stg = item
+        if stg is not None:  # staged while tracing recorded
             t, n = _clock(), self._q.qsize()
-        step = self.ex.dispatch(ins, counts)
-        if stamp is not None:
-            trace.add("pump.source", self._stream, step.seq, *stamp)
-            trace.add("pump.queue", self._stream, step.seq, stamp[1], t, n)
+        step = self.ex.dispatch(staged)
+        with self._lock:
+            self.staged += isinstance(staged, Staged)
+        if src is not None:
+            trace.add("pump.source", self._stream, step.seq, *src)
+        if stg is not None:
+            trace.add("pump.stage", self._stream, step.seq, *stg)
+            trace.add("pump.queue", self._stream, step.seq, stg[1], t, n)
         return step
 
     def _run_loop(self):

@@ -52,32 +52,88 @@ def _wait(cond, seconds=30.0):
     assert cond(), "timed out"
 
 
-def _pump_run(blocks, inflight, **kw):
+def _logged(ex):
+    """Log each block ``ex`` dispatches, as ``(input arrays, counts)`` copied
+    when the block was staged: what the executor was handed, in order."""
+    copies, order = {}, []
+    stage, dispatch = ex.stage, ex.dispatch
+
+    def staged(ins, counts=None, **kw):
+        s = stage(ins, counts, **kw)
+        copies[id(s)] = ({k: np.array(v) for k, v in ins.items()}, counts)
+        return s
+
+    def dispatched(s, *a, **kw):
+        order.append(copies.pop(id(s)))
+        return dispatch(s, *a, **kw)
+    ex.stage, ex.dispatch = staged, dispatched
+    return order
+
+
+def _outs(ex, ins, counts=None):
+    o = ex.step(ins, counts)
+    return [("audio", o["audio"][0][:o["audio"][1]]),
+            ("quad", o["quad"][0][:o["quad"][1]])]
+
+
+# each mode: (pump options, source blocks, blocks out to wait for)
+_MODES = dict(
+    blocking=(dict(), 6, 6),
+    drop=(dict(depth=1, drop=True), 12, None),
+    zero_fill=(dict(zero_fill=True), 4, 7),
+    partial=(dict(), 6, 6),
+)
+
+
+@pytest.mark.parametrize("inflight, mode", [
+    pytest.param(1, "blocking", id="1"),
+    pytest.param(3, "blocking", id="3"),
+    pytest.param(2, "blocking", id="2"),
+    pytest.param(4, "blocking", id="4"),
+    pytest.param(3, "drop", id="drop"),
+    pytest.param(3, "zero_fill", id="zero_fill"),
+    pytest.param(3, "partial", id="partial"),
+])
+def test_pump_blocking_mode_equals_executor_step(inflight, mode):
+    """A pump's outputs, in every mode, equal the same blocks through
+    ``ex.step``: each block the executor was handed, in order; in
+    blocking mode every source block, each staged on the feeder."""
+    kw, n, out = _MODES[mode]
+    blocks = [{"iq": b} for b in _blocks(n)]
+    if mode == "partial":  # the stream ends mid-block
+        blocks[-1] = (blocks[-1], {"iq": N // 2 + 3})
     ex = _executor()
-    feed = list(blocks)
-    got = []
+    order = _logged(ex)
+    feed, got = list(blocks), []
+    delay = 0.01 if mode == "drop" else 0.0  # a slow sink: blocks drop
+
+    def sink(port):
+        return lambda d, c: (got.append((port, d[:c])), time.sleep(delay))
     pump = StreamPump(ex, lambda: feed.pop(0) if feed else None,
-                      {"audio": lambda d, c: got.append(("audio", d[:c])),
-                       "quad": lambda d, c: got.append(("quad", d[:c]))},
+                      {p: sink(p) for p in ("audio", "quad")},
                       inflight=inflight, **kw)
     pump.start()
-    _wait(lambda: pump.stats()["blocks_out"] == len(blocks))
+    _wait(lambda: pump.stats()["blocks_out"] >= out if out else
+          pump.stats()["blocks_out"] + pump.stats()["overruns"] == n)
     pump.stop()
-    return pump.stats(), got
-
-
-@pytest.mark.parametrize("inflight", [1, 3])
-def test_pump_blocking_mode_equals_executor_step(inflight):
-    blocks = [{"iq": b} for b in _blocks(6)]
-    stats, got = _pump_run(blocks, inflight)
-    assert stats["blocks_in"] == stats["blocks_out"] == 6
-    assert stats["overruns"] == stats["underruns"] == 0
-    ex = _executor()
-    want = []
-    for b in blocks:
-        o = ex.step(b)
-        want += [("audio", o["audio"][0][:o["audio"][1]]),
-                 ("quad", o["quad"][0][:o["quad"][1]])]
+    stats = pump.stats()
+    assert stats["staged"] == stats["blocks_out"] == len(order)
+    if mode == "drop":
+        assert stats["blocks_in"] == n == stats["blocks_out"] + \
+            stats["overruns"]
+    elif mode == "zero_fill":
+        assert stats["underruns"] >= len(order) - n >= out - n
+        assert all(not ins["iq"].any() for ins, _ in order[n:])
+    else:
+        assert stats["blocks_in"] == stats["blocks_out"] == n
+        assert stats["overruns"] == stats["underruns"] == 0
+    if mode != "drop":  # every source block, in order, as it was
+        for (ins, counts), b in zip(order, blocks):
+            ins_b, counts_b = b if isinstance(b, tuple) else (b, None)
+            np.testing.assert_array_equal(ins["iq"], ins_b["iq"])
+            assert counts == counts_b
+    ref = _executor()
+    want = [o for ins, counts in order for o in _outs(ref, ins, counts)]
     assert [p for p, _ in got] == [p for p, _ in want]
     for (_, a), (_, b) in zip(got, want):
         np.testing.assert_array_equal(a, b)

@@ -19,7 +19,7 @@ from grbaz_tpu_torch.models.wbfm import WBFMConfig, build_wbfm
 FS = 3.2e6
 N = 4096
 BLOCKS = ("channel", "demod", "audio_aa", "resampler", "deemph")
-DISPATCH = ("dispatch.params", "dispatch.stage", "dispatch.upload",
+DISPATCH = ("dispatch.stage", "dispatch.params", "dispatch.upload",
             "dispatch.meta", "dispatch.graph")
 
 
@@ -102,8 +102,10 @@ def test_dispatch_splits_into_its_parts_and_blocks(tracing):
         assert [s.name for s in kids] == list(DISPATCH)
         assert all(_inside(k, top) for k in kids)
         assert all(a.t1 <= b.t0 for a, b in zip(kids, kids[1:]))
-        stage = kids[1]
-        assert stage.n == N * 8  # complex64 bytes staged
+        stage = kids[0]
+        assert stage.n == 0  # the feeder staged the block
+        copy, = [s for s in mine if s.name == "pump.stage"]
+        assert copy.n == N * 8 and copy.t1 <= top.t0  # complex64 bytes
         graph = kids[-1]
         blocks = [s for s in mine if s.parent == "dispatch.graph"]
         assert [s.name for s in blocks] == [f"block.{b}" for b in BLOCKS]
@@ -118,7 +120,8 @@ def test_fetch_splits_and_blocks_agree(tracing):
         mine = per[(ex.stream_id, seq)]
         names = collections.Counter(s.name for s in mine)
         for name in ("executor.dispatch", "executor.fetch", "fetch.wait",
-                     "fetch.copy", "pump.source", "pump.queue", "pump.sinks",
+                     "fetch.copy", "pump.source", "pump.stage", "pump.queue",
+                     "pump.sinks",
                      *DISPATCH, *(f"block.{b}" for b in BLOCKS)):
             assert names[name] == 1, (seq, name)
         fetch = next(s for s in mine if s.name == "executor.fetch")
@@ -144,10 +147,25 @@ def test_pump_queue_one_per_block(tracing, depth):
     assert all(0 <= s.n <= depth and s.t0 <= s.t1 for s in queue)
     source = {s.seq: s for s in spans if s.name == "pump.source"
               and s.seq >= 0}
+    stage = {s.seq: s for s in spans if s.name == "pump.stage"}
     dispatch = {s.seq: s for s in spans if s.name == "executor.dispatch"}
-    for s in queue:  # source call, then the queue, then the dispatch
-        assert source[s.seq].t1 == s.t0 and s.t1 <= dispatch[s.seq].t0
+    for s in queue:  # source call, the copy, the queue, then the dispatch
+        assert source[s.seq].t1 <= stage[s.seq].t0
+        assert stage[s.seq].t1 == s.t0 and s.t1 <= dispatch[s.seq].t0
     assert all(s.parent is None for s in queue)
+
+
+def test_raw_dispatch_stages_its_own_block(tracing):
+    """``dispatch`` given host arrays copies them itself: its
+    ``dispatch.stage`` counts the bytes, and no ``pump.stage`` is made."""
+    ex = _executor()
+    for b in _blocks(2):
+        ex.step(b)
+    spans = trace.spans()
+    stage = [s for s in spans if s.name == "dispatch.stage"]
+    assert [(s.seq, s.n, s.parent) for s in stage] == [
+        (0, N * 8, "executor.dispatch"), (1, N * 8, "executor.dispatch")]
+    assert not [s for s in spans if s.name == "pump.stage"]
 
 
 def test_graph_span_counts_no_other_work_under_one_pump(tracing):
@@ -382,9 +400,9 @@ def test_unfetched_steps_are_bounded_and_reset_takes_them_out():
 
 @pytest.mark.cuda
 def test_off_on_the_card_adds_no_event(monkeypatch):
-    """The served path's CUDA events: the uploader's two and the step's
-    end event are made once and recorded again each step, traced or not
-    (the end event from the executor's pool)."""
+    """The served path's CUDA events: the input slots' (one a slot) and the
+    step's end event are made once and recorded again each step, traced or
+    not (the end event from the executor's pool)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     made = []
