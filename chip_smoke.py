@@ -52,7 +52,10 @@ failure of which exits non-zero:
    tone in its bin at 0 dBFS; ``build_fac`` at its defaults;
    ``PeakDetector(min_diff=0.1)`` marking planted peaks), config 4
    (``MusicDOA(8, 1, 512)`` over 256 frames, planted angles found within
-   1 degree) and config 5 (the 16-slot ``DynamicChannelBank`` at 2^17
+   1 degree; then radiobench's ``doa`` chain, B1's row entry over 5
+   antennas into ``MusicDOA(5, 2, 4096)`` under a ``StreamExecutor``,
+   four 2^18-snapshot blocks held to its plain reference's limits, the
+   row entry once a block) and config 5 (the 16-slot ``DynamicChannelBank`` at 2^17
    blocks on the bank's kernel ``csrc/channel_bank.cu``, one launch a
    step and no LO computed on the host, against its plain backend, with
    an add, a removal and a retune mid-run, and an FM tone that comes back
@@ -337,7 +340,10 @@ from grbaz_tpu_torch.parallel.pipeline import StagePipeline, _wbfm_stages
 from grbaz_tpu_torch.parallel.tp import TPFIRDecimator
 from grbaz_tpu_torch.parallel.wbfm_bank import BankConfig, ShardedWBFMBank
 from grbaz_tpu_torch.utils import acars
+from radiobench.configs import doa as doa_cell
+from radiobench.reference import doa as doa_ref
 from radiobench.spans import covered
+from radiobench.work import b1_rows
 
 FS = 3.2e6
 BLOCK = 1 << 20
@@ -358,6 +364,11 @@ KERNELS = {  # row -> (wrappers whose launches it counts, source, TPU kernel)
     "xlating_fir_frame_rtf": (
         (xf.xlating_fir_frame_rtf,), "grbaz_tpu_torch/csrc/xlating_fir.cu",
         "grbaz_tpu/ops/pallas/wbfm_frontend.py:403"),
+    # B1's row entry: the block kernel over an array's [n, M] snapshots,
+    # every row in one launch (the JAX package channelizes one stream)
+    "xlating_fir_rows": (
+        (xf.xlating_fir_rows,), "grbaz_tpu_torch/csrc/xlating_fir.cu",
+        "grbaz_tpu/ops/pallas/wbfm_frontend.py:621"),
     # B3's two entry points: the frame (the JAX signature) and the block
     # with the carried tail read in place (FIRDecimator's)
     "fir_decimate_frame": (
@@ -446,6 +457,13 @@ BANK_BLOCK = 1 << 17
 BANK_TONE_SLOT = 10
 BANK_DEV_HZ = 5e3
 PATH_BLOCKS = 4       # blocks of each config-1, -3 and -4 path
+# the DF station (radiobench's doa configuration): 2^18-snapshot blocks
+# of its 5-antenna array; B1's row cases also at a ragged length
+DOA_CFG = json.load(open(os.path.join(os.path.dirname(
+    os.path.abspath(__file__)), "radiobench", "configs", "doa.json")))
+DOA_BLOCK = 1 << 18
+DOA_RAGGED = DOA_BLOCK - 301
+DOA_BLOCKS = 4
 BANK_BLOCKS = 8
 # the burst path: the stream starts 2^19 samples before the low limb
 # wraps; pulses of PULSE_LEN samples at amplitude 1.5 (power 2.25: above
@@ -673,6 +691,7 @@ def kernel_cases(dev):
                                            generator=gen, device=dev),
                        4 * BLOCK)
     return [ctaps_case(h_chan, inc, tail, xs),
+        *rows_cases(dev, gen, phase0),
         dict(name="xlating_fir_block",
              kernel=lambda i: xf.xlating_fir_block(
                  xs[i % len(xs)], tail, h_chan, DECIM, phase0, inc),
@@ -794,6 +813,38 @@ def kernel_cases(dev):
         *auto_fec_cases(dev),
         *decode_kernel_cases(dev),
     ]
+
+
+def rows_cases(dev, gen, phase0):
+    """B1's row entry at the DF station's shape (``DOA_CFG``: 5 antenna
+    rows, its channel taps, decimation 8), over a 2^18-snapshot block and
+    a ragged one, each against its plain twin (M one-stream calls)."""
+    cfg = DOA_CFG
+    m, fs, decim = cfg["antennas"], cfg["sample_rate"], cfg["decim"]
+    h = torch.from_numpy(fir.prepare_taps(fir.low_pass_taps(
+        1.0, fs, cfg["channel_width"] / 2 + cfg["transition"] / 2,
+        cfg["transition"]), decim)).to(dev)
+    tpad = h.shape[0]
+    inc = torch.tensor(int(exact.freq_to_turns_u32(-cfg["channel_hz"], fs)),
+                       device=dev)
+    tail = torch.view_as_complex(torch.randn(tpad, m, 2, generator=gen,
+                                             device=dev))
+    cases = []
+    for n in (DOA_BLOCK, DOA_RAGGED):
+        xs = copies(lambda: torch.view_as_complex(torch.randn(
+            n, m, 2, generator=gen, device=dev)), 8 * n * m)
+        nbytes, flops = b1_rows.work(n, tpad, decim, m)
+        cases.append(dict(
+            name="xlating_fir_rows",
+            shape=f"DF array, {m} rows of {n}, decim {decim}, {tpad} taps",
+            kernel=lambda i, xs=xs: xf.xlating_fir_rows(
+                xs[i % len(xs)], tail, h, decim, phase0, inc),
+            plain=lambda i, xs=xs: xf.xlating_fir_rows_plain(
+                xs[i % len(xs)], tail, h, decim, phase0, inc),
+            library=None, geometry=tiling.for_tensor(
+                xs[0], (n // decim) * m, tpad, decim, 8),
+            nbytes=nbytes, flops=flops))
+    return cases
 
 
 def fsm_block(rng, rows, n):
@@ -2127,6 +2178,40 @@ def music_path(dev):
           f"1 degree of the planted peaks)")
     check(db.max() < 0.2, "music card and CPU spectra differ")
     time_path("music", graph(dev), xs, 1.0, frames, "scans/s", scale=1.0)
+
+
+def doa_path(dev):
+    """The DF station on the served path: radiobench's ``doa`` chain (B1's
+    row entry over the 5 antennas, ``SnapshotFrames``, ``MusicDOA(5, 2,
+    4096)`` with the conjugated circular steering) under its
+    ``StreamExecutor``, ``DOA_BLOCKS`` blocks of 2^18 snapshots of the
+    cell's two emitters, launch counts set to 0 just before: the row
+    entry once a block and no other kernel; every block held to the plain
+    reference (gr-baz's ``R = x x^H``, float64 eigh) within its limits."""
+    cfg = DOA_CFG
+    seed = 2 ** 31 + 27
+    ring = doa_cell.ring(cfg, 1, DOA_BLOCKS, DOA_BLOCK, seed, dev)[0]
+    ex = doa_cell.executor(cfg, DOA_BLOCK, dev)
+    ex.step({"iq": ring[0]})   # warm-up; block 0 again below
+    ex.reset()
+    syncs = doa.signal_subspace.host_syncs
+    outs, counts = counted("doa", ("xlating_fir_rows",), DOA_BLOCKS,
+                           lambda: [ex.step({"iq": ring[j]})
+                                    for j in range(DOA_BLOCKS)])
+    syncs = (doa.signal_subspace.host_syncs - syncs) / DOA_BLOCKS
+    for j, out in enumerate(outs):
+        nums = doa_ref.numbers(out, doa_ref.outputs(cfg, ring, j, "f64",
+                                                    dev))
+        print(f"doa block {j}: bearings {out['doas'][0][0].tolist()} "
+              f"(frame 0), "
+              + ", ".join(f"{k} {v} (limit {doa_ref.LIMITS[k]})"
+                          for k, v in nums.items()))
+        for k, v in nums.items():
+            check(v <= doa_ref.LIMITS[k], f"doa block {j}: {k} {v} above "
+                  f"its limit {doa_ref.LIMITS[k]}")
+    print(f"doa: {DOA_BLOCKS} blocks of {DOA_BLOCK} snapshots x "
+          f"{cfg['antennas']} antennas, {syncs:.1f} host syncs a block")
+    return counts
 
 
 def bank_graph(device, backend="auto"):
@@ -5559,12 +5644,13 @@ def profile_chain(run, step_ms: float, label: str, kernels=()):
     with open(os.path.join(OUT_DIR, f"{label}_profile.txt"), "w") as fh:
         fh.write(table)
     # kernel rows only: the aten rows repeat their kernels' time
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not e.is_user_annotation)
-    kern_ms = dev_us / 1e3 / steps
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+    kern_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     busy = kern_ms / step_ms
-    print(f"profile {label} ({steps} steps): kernels {kern_ms:.4f} ms per step; "
+    print(f"profile {label} ({steps} steps): kernels {kern_ms:.4f} ms per step "
+          f"({sum(e.count for e in kern) / steps:.1f} launches); "
           f"step {prof_ms:.4f} ms under the profiler, {step_ms:.4f} ms "
           f"without (events); device busy {100 * busy:.1f}%, idle "
           f"{100 * (1 - busy):.1f}% of the unprofiled step")
@@ -5713,6 +5799,7 @@ def main() -> int:
     spectral_path(dev)
     peak_path(dev)
     music_path(dev)
+    launches["xlating_fir_rows"] = doa_path(dev)["xlating_fir_rows"]
     bank_launches = bank_path(dev)
     for name in BANK_PATH_KERNELS:
         launches[name] = bank_launches[name]

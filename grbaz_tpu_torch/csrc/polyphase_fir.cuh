@@ -5,8 +5,12 @@
 // with the sample s(i) = hist[tpad + i] for i < 0 (the carried history),
 // body[i] for 0 <= i < n and 0 past the block's end. A kernel picks the
 // sample type S (float or float2), the tap policy (real taps copied from
-// h, or complex taps built from h and the LO increment) and the epilogue
-// (store, or rotate by the output's LO phase, then store).
+// h, or complex taps built from h and the LO increment), the epilogue
+// (store, or rotate by the output's LO phase, then store) and the row
+// policy: one stream (Contiguous), or `rows` streams interleaved sample
+// by sample (Interleaved: sample i of row r at [i * rows + r] in hist,
+// body and y, as an antenna array delivers its snapshots), every row
+// filtered with the same taps and LO.
 //
 // Design (H100). The host picks the Geometry (threads, R, split) in
 // grbaz_tpu_torch/ops/cuda/tiling.py; every size that follows from it
@@ -14,6 +18,12 @@
 // layout(), so no geometry can make the kernel reach past its shared
 // memory. tiling.py mirrors layout() only to choose a geometry that fits.
 //
+// * Interleaved rows: every (tile, row) pair has its own block, the rows
+//   of one tile in neighbouring blocks, so that the tile's span of the
+//   interleaved block is read from device memory about once and the
+//   other rows' reads of the same sectors hit L2. A row's copies are
+//   rows * sizeof(S) bytes apart, one sector each: the staging moves
+//   `rows` times the sectors of a contiguous row, from L2.
 // * A tile of TILE outputs needs ROWS = TILE + mp - 1 polyphase rows of
 //   decim samples (mp: the taps of one phase, tpad/decim, padded with
 //   zero taps to a multiple of R). Every tile has its own block, and at
@@ -81,14 +91,24 @@ struct Geometry {
 };
 
 struct Problem {
-  const void* hist;  // sample i < 0 is hist[tpad + i]
-  const void* body;  // sample 0 <= i < n is body[i]
+  const void* hist;  // sample i < 0 of row r is hist[(tpad + i) * rows + r]
+  const void* body;  // sample 0 <= i < n of row r is body[i * rows + r]
   int64_t n;
   const float* h;          // real reversed taps, tpad of them
   const int64_t* phase0;   // 0-d uint32 values, read on the card
   const int64_t* inc;
-  void* y;
+  void* y;                 // output k of row r is y[k * rows + r]
   int n_out, tpad, decim;
+  int rows = 1;  // streams interleaved in hist, body, y (Interleaved only);
+                 // not the polyphase rows of a tile (Layout::rows)
+};
+
+// row policies: one stream, or `rows` streams interleaved sample by sample
+struct Contiguous {
+  static constexpr bool kRows = false;
+};
+struct Interleaved {
+  static constexpr bool kRows = true;
 };
 
 // ---------------------------------------------------------------------------
@@ -116,7 +136,7 @@ struct Layout {
   int ts;     // phase stride of the taps
   int rows;   // polyphase rows a tile reads
   int plane;  // plane stride in samples
-  int grid;   // blocks: one per tile
+  int grid;   // blocks: one per tile and row
   int64_t smem;  // dynamic shared-memory bytes
 };
 
@@ -132,7 +152,7 @@ inline Layout layout(const Problem& pr, const Geometry& geo, int sample_bytes,
   const int want = (w / geo.split) * group_stride(geo.r) % w;
   const int last = row_slot(l.rows - 1, geo.r) + 1;
   l.plane = last + ((want - last) % w + w) % w;
-  l.grid = (pr.n_out + l.tile - 1) / l.tile;
+  l.grid = (pr.n_out + l.tile - 1) / l.tile * pr.rows;
   l.smem = (int64_t)pr.decim * l.plane * sample_bytes +
            (int64_t)pr.decim * l.ts * tap_bytes;
   return l;
@@ -232,11 +252,13 @@ struct RotatedTaps {
 // epilogues
 // ---------------------------------------------------------------------------
 
+// store(k, at, v): output k of its row, at y[at]
 struct StorePlain {
   void* y;
   __device__ explicit StorePlain(const Problem& pr) : y(pr.y) {}
-  template <typename S> __device__ void store(int64_t k, S v) const {
-    static_cast<S*>(y)[k] = v;
+  template <typename S>
+  __device__ void store(int64_t, int64_t at, S v) const {
+    static_cast<S*>(y)[at] = v;
   }
 };
 
@@ -254,19 +276,21 @@ struct StoreRotated {
   __device__ explicit StoreRotated(const Problem& pr)
       : y(static_cast<float2*>(pr.y)), phase0((uint32_t)(*pr.phase0)),
         dinc((uint32_t)pr.decim * (uint32_t)(*pr.inc)) {}
-  __device__ void store(int64_t k, float2 v) const {
+  __device__ void store(int64_t k, int64_t at, float2 v) const {
     const uint32_t ph = phase0 + (uint32_t)k * dinc;
     float s, c;
     sincosf(__uint2float_rn(ph) * TO_RAD, &s, &c);
-    y[k] = plus_zeros(make_float2(c * v.x - s * v.y, c * v.y + s * v.x));
+    y[at] = plus_zeros(make_float2(c * v.x - s * v.y, c * v.y + s * v.x));
   }
 };
 
 // ---------------------------------------------------------------------------
-// the kernel: block b computes outputs [b*tile, (b+1)*tile)
+// the kernel: block b computes outputs [t*tile, (t+1)*tile) of row r, with
+// (t, r) = (b, 0) for one stream and (b / rows, b % rows) for interleaved
+// rows
 // ---------------------------------------------------------------------------
 
-template <typename S, int R, class Taps, class Epi>
+template <typename S, int R, class Taps, class Epi, class Rows>
 __global__ void __launch_bounds__(MAX_THREADS)
 polyphase_fir_kernel(Problem pr, Layout lay) {
   using G = typename Taps::G;
@@ -276,10 +300,14 @@ polyphase_fir_kernel(Problem pr, Layout lay) {
   const int D = pr.decim, P = lay.plane, split = lay.split;
   S* xs = reinterpret_cast<S*>(smem);
   G* gs = reinterpret_cast<G*>(xs + D * P);
-  const S* hist = static_cast<const S*>(pr.hist);
-  const S* body = static_cast<const S*>(pr.body);
+  // one stream: row 0, stride 1, so the addressing is a contiguous row's
+  const int row = Rows::kRows ? (int)(blockIdx.x % pr.rows) : 0;
+  const int64_t st = Rows::kRows ? pr.rows : 1;
+  const S* hist = static_cast<const S*>(pr.hist) + row;
+  const S* body = static_cast<const S*>(pr.body) + row;
   const int tid = threadIdx.x;
-  const int64_t k0 = (int64_t)blockIdx.x * lay.tile;
+  const int64_t k0 =
+      (int64_t)(Rows::kRows ? blockIdx.x / pr.rows : blockIdx.x) * lay.tile;
 
   // stage the tile: sample j of the span is row j / D, phase j % D, at
   // xs[p*P + row_slot(row)]
@@ -292,13 +320,14 @@ polyphase_fir_kernel(Problem pr, Layout lay) {
       // inside the block, with a stride of whole window groups: every
       // copy of this lane lands in one plane, a constant step apart
       S* d = xs + p * P + row_slot(r, R);
-      const S* src = body + i0 + tid;
+      const S* src = body + (i0 + tid) * st;
       const int step = row_slot(dr, R);
+      const int64_t src_step = blockDim.x * st;
 #pragma unroll 4
       for (int j = tid; j < total; j += blockDim.x) {
         cp_async<sizeof(S)>(d, src, sizeof(S));
         d += step;
-        src += blockDim.x;
+        src += src_step;
       }
     } else {
       for (int j = tid; j < total; j += blockDim.x) {
@@ -306,10 +335,10 @@ polyphase_fir_kernel(Problem pr, Layout lay) {
         const S* src = body;
         int bytes = 0;
         if (i < 0) {
-          src = hist + (pr.tpad + i);
+          src = hist + (pr.tpad + i) * st;
           bytes = sizeof(S);
         } else if (i < pr.n) {
-          src = body + i;
+          src = body + i * st;
           bytes = sizeof(S);
         }
         cp_async<sizeof(S)>(xs + p * P + row_slot(r, R), src, bytes);
@@ -367,22 +396,22 @@ polyphase_fir_kernel(Problem pr, Layout lay) {
     S v = acc[0];
 #pragma unroll
     for (int i = 1; i < R; ++i) v = i == i0 ? acc[i] : v;
-    if (kg + i0 < pr.n_out) epi.store(kg + i0, v);
+    if (kg + i0 < pr.n_out) epi.store(kg + i0, (kg + i0) * st + row, v);
   }
 }
 
-template <typename S, int R, class Taps, class Epi>
+template <typename S, int R, class Taps, class Epi, class Rows>
 int launch_r(const Problem& pr, const Layout& lay, int threads,
              cudaStream_t stream) {
   // set on every such launch: a static "already set" flag would be one
   // object for every library that instantiates this kernel
   if (lay.smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        polyphase_fir_kernel<S, R, Taps, Epi>,
+        polyphase_fir_kernel<S, R, Taps, Epi, Rows>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.smem);
     if (e != cudaSuccess) return (int)e;
   }
-  polyphase_fir_kernel<S, R, Taps, Epi>
+  polyphase_fir_kernel<S, R, Taps, Epi, Rows>
       <<<lay.grid, threads, (size_t)lay.smem, stream>>>(pr, lay);
   return (int)cudaGetLastError();
 }
@@ -390,23 +419,30 @@ int launch_r(const Problem& pr, const Layout& lay, int threads,
 // Launch on `stream`; returns the CUDA error code, cudaErrorInvalidValue
 // for a geometry or problem the kernel does not take or a layout that
 // does not fit in shared memory.
-template <typename S, class Taps, class Epi>
+template <typename S, class Taps, class Epi, class Rows = Contiguous>
 int launch(const Problem& pr, const Geometry& geo, cudaStream_t stream) {
   if (pr.n_out <= 0) return 0;
   // every field is checked before layout() divides by it
   if (geo.threads <= 0 || geo.threads > MAX_THREADS || geo.threads % 32 ||
       geo.split <= 0 || (geo.split & (geo.split - 1)) || geo.split > 32 ||
       geo.r <= 0 || (geo.r & (geo.r - 1)) || geo.r > 8 ||
-      pr.decim <= 0 || pr.tpad < pr.decim || pr.tpad % pr.decim)
+      pr.decim <= 0 || pr.tpad < pr.decim || pr.tpad % pr.decim ||
+      pr.rows <= 0 || (!Rows::kRows && pr.rows != 1))
     return (int)cudaErrorInvalidValue;
   const Layout lay =
       layout(pr, geo, sizeof(S), sizeof(typename Taps::G));
-  if (lay.smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (lay.smem > MAX_SMEM ||
+      (int64_t)((pr.n_out + lay.tile - 1) / lay.tile) * pr.rows > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
   switch (geo.r) {
-    case 1: return launch_r<S, 1, Taps, Epi>(pr, lay, geo.threads, stream);
-    case 2: return launch_r<S, 2, Taps, Epi>(pr, lay, geo.threads, stream);
-    case 4: return launch_r<S, 4, Taps, Epi>(pr, lay, geo.threads, stream);
-    case 8: return launch_r<S, 8, Taps, Epi>(pr, lay, geo.threads, stream);
+    case 1: return launch_r<S, 1, Taps, Epi, Rows>(pr, lay, geo.threads,
+                                                   stream);
+    case 2: return launch_r<S, 2, Taps, Epi, Rows>(pr, lay, geo.threads,
+                                                   stream);
+    case 4: return launch_r<S, 4, Taps, Epi, Rows>(pr, lay, geo.threads,
+                                                   stream);
+    case 8: return launch_r<S, 8, Taps, Epi, Rows>(pr, lay, geo.threads,
+                                                   stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,7 +6,13 @@
 //     channelizer -- entry point xlating_fir_block below;
 //   * xlating_fir_frame_pallas_rtf (_run_rtf / _kernel_rtf): the same
 //     math under the frame convention -- entry point xlating_fir_frame_rtf.
-// Both launch the one kernel; only the input addressing differs.
+// Both launch the one kernel; only the input addressing differs. A third
+// entry point, xlating_fir_rows, replaces no TPU kernel: it is B1 over the
+// M coherent rows of an antenna array's block ([n, M] snapshots, the
+// carried tail [tpad, M], outputs [n_out, M]), one launch for every row,
+// with one tap set and one LO phase and increment for all of them. It
+// reads the snapshots as they lie (Interleaved in polyphase_fir.cuh), so
+// no transposed copy of the block is made.
 //
 // With i the sample index relative to the first NEW sample x[0] (negative
 // over the tpad-1 samples of history), rotate-then-filter is
@@ -94,4 +100,19 @@ extern "C" int xlating_fir_frame_rtf(const void* frame, int64_t n,
   const float2* f = static_cast<const float2*>(frame);
   return launch(f - 1, f + (tpad - 1), n, h, phase0, inc, y, n_out, tpad,
                 decim, geo, static_cast<cudaStream_t>(stream));
+}
+
+// New block x[n, rows] of interleaved rows with the carried tail[tpad, rows]
+// (tail[1:] is each row's history); y[n_out, rows]. Every row has the
+// phase phase0 at x[0].
+extern "C" int xlating_fir_rows(const void* x, const void* tail, int64_t n,
+                                int rows, const float* h,
+                                const int64_t* phase0, const int64_t* inc,
+                                void* y, int n_out, int tpad, int decim,
+                                Geometry geo, void* stream) {
+  Problem pr{tail, x, n, h, phase0, inc, y, n_out, tpad, decim};
+  pr.rows = rows;
+  return pfir::launch<float2, pfir::RotatedTaps, pfir::StoreRotated,
+                      pfir::Interleaved>(pr, geo,
+                                         static_cast<cudaStream_t>(stream));
 }

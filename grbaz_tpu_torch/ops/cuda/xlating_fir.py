@@ -13,6 +13,12 @@ Replaces two TPU kernels of ``grbaz_tpu/ops/pallas/wbfm_frontend.py``:
   same over ``frame = concat(tail[1:], x)``; a second entry point of the
   same CUDA kernel.
 
+:func:`xlating_fir_rows` replaces no TPU kernel: it is the block entry
+point over the M coherent rows of an antenna array, ``x`` [n, M] as the
+array delivers its snapshots and the tail [tpad, M], every row rotated by
+the same LO and filtered with the same taps, all rows in one launch. Its
+plain twin is M calls of the block entry point's, one a row.
+
 The kernel computes the factored form: B2's rotated complex taps over
 the raw samples, then one LO rotation per output (``csrc/xlating_fir.cu``);
 the plain twins stay rotate-then-filter, the independent reference it is
@@ -38,6 +44,8 @@ _G = tiling.Geometry
 _SIGNATURES = {
     "xlating_fir_block": [_P, _P, _I64, _P, _P, _P, _P, _I, _I, _I, _G, _P],
     "xlating_fir_frame_rtf": [_P, _I64, _P, _P, _P, _P, _I, _I, _I, _G, _P],
+    "xlating_fir_rows": [_P, _P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _G,
+                         _P],
 }
 
 
@@ -55,6 +63,12 @@ def xlating_fir_block_plain(x, tail, h_rev_pad, decim, phase0, lo_inc):
     lo_t, _ = exact.oscillator(tpad, (phase0 - tpad * lo_inc) & U32_MASK,
                                lo_inc)
     return fir.fir_decimate_tail_block(tail * lo_t, x * lo, h_rev_pad, decim)
+
+
+def xlating_fir_rows_plain(x, tail, h_rev_pad, decim, phase0, lo_inc):
+    return torch.stack([xlating_fir_block_plain(
+        x[:, r].contiguous(), tail[:, r].contiguous(), h_rev_pad, decim,
+        phase0, lo_inc) for r in range(x.shape[1])], dim=1)
 
 
 def xlating_fir_frame_rtf_plain(frame, h_rev_pad, decim, phase0, lo_inc):
@@ -111,6 +125,30 @@ def xlating_fir_block_kernel(x, tail, h_rev_pad, decim, phase0, lo_inc):
     return y
 
 
+def xlating_fir_rows_kernel(x, tail, h_rev_pad, decim, phase0, lo_inc):
+    if not x.is_cuda:
+        raise ValueError("xlating_fir_rows_kernel needs CUDA tensors")
+    _check_common(h_rev_pad, decim, phase0, lo_inc, x.device)
+    tpad = h_rev_pad.shape[0]
+    if x.dim() != 2:
+        raise ValueError(f"x must be [n, rows], not {tuple(x.shape)}")
+    n, rows = x.shape
+    if tail.shape != (tpad, rows) or tail.device != x.device:
+        raise ValueError(f"tail must be [{tpad}, {rows}] on {x.device}")
+    x, tail = _c64(x, "x"), _c64(tail, "tail")
+    h = h_rev_pad.contiguous()
+    n_out = n // decim
+    y = torch.empty((n_out, rows), dtype=torch.complex64, device=x.device)
+    err = _lib().xlating_fir_rows(
+        x.data_ptr(), tail.data_ptr(), n, rows, h.data_ptr(),
+        phase0.data_ptr(), lo_inc.data_ptr(), y.data_ptr(), n_out, tpad,
+        decim, tiling.for_tensor(x, n_out * rows, tpad, decim, 8),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "xlating_fir_rows")
+    xlating_fir_rows.launches += 1
+    return y
+
+
 def xlating_fir_frame_rtf_kernel(frame, h_rev_pad, decim, phase0, lo_inc):
     if not frame.is_cuda:
         raise ValueError("xlating_fir_frame_rtf_kernel needs CUDA tensors")
@@ -146,6 +184,16 @@ def xlating_fir_block(x, tail, h_rev_pad, decim, phase0, lo_inc):
     return xlating_fir_block_plain(x, tail, h_rev_pad, decim, phase0, lo_inc)
 
 
+def xlating_fir_rows(x, tail, h_rev_pad, decim, phase0, lo_inc):
+    """Rotated channel outputs ``[n//decim, M]`` of the M interleaved rows
+    of ``x`` [n, M] with their carried unrotated ``tail`` [tpad, M]; every
+    row's ``x[0]`` has the phase ``phase0``."""
+    if x.is_cuda:
+        return xlating_fir_rows_kernel(x, tail, h_rev_pad, decim, phase0,
+                                       lo_inc)
+    return xlating_fir_rows_plain(x, tail, h_rev_pad, decim, phase0, lo_inc)
+
+
 def xlating_fir_frame_rtf(frame, h_rev_pad, decim, phase0, lo_inc):
     """Rotated channel outputs over ``frame = concat(tail[1:], x)``;
     ``phase0`` is the phase of the first new sample ``frame[tpad-1]``."""
@@ -157,4 +205,5 @@ def xlating_fir_frame_rtf(frame, h_rev_pad, decim, phase0, lo_inc):
 
 
 xlating_fir_block.launches = 0
+xlating_fir_rows.launches = 0
 xlating_fir_frame_rtf.launches = 0

@@ -291,6 +291,13 @@ class FreqXlatingFIRDecimator(Block):
       ``fir_decimate_frame`` kernel when ``fir_kernel=True`` (the JAX
       ``use_pallas``), else the plain product.
 
+    ``rows``: None for one stream ``[n]``; M for the M coherent rows of an
+    antenna array, a block ``[n, M]`` of snapshots (``count`` along n, as
+    for one stream) and a tail ``[tpad, M]``, every row with the same LO
+    and taps. Its kernel arm is one launch for all rows
+    (``xlating_fir_rows``); every other arm is M one-stream calls, a row
+    each.
+
     The kernel and rotate-then-filter arms carry one state, the JAX
     package's CPU layout: a tail of ROTATED samples (the last TPAD of
     ``x * lo``). The kernel filters an UNROTATED history, so the kernel
@@ -307,10 +314,14 @@ class FreqXlatingFIRDecimator(Block):
     def __init__(self, taps, decim: int, center_freq: float,
                  sample_rate: float, dtype=torch.complex64, name=None,
                  fir_kernel: bool = False, rotate_taps: bool = False,
-                 backend: str = "auto", device="cuda"):
+                 backend: str = "auto", rows: int | None = None,
+                 device="cuda"):
         super().__init__(name)
         self.device = resolve_device(device)
         self.decim = int(decim)
+        if rows is not None and int(rows) < 1:
+            raise ValueError(f"rows must be at least 1, not {rows}")
+        self.rows = None if rows is None else int(rows)
         self.fir_kernel = bool(fir_kernel)
         self.rotate_taps = bool(rotate_taps)
         self.backend = _check_backend(backend)
@@ -323,7 +334,9 @@ class FreqXlatingFIRDecimator(Block):
         self._offsets = {}   # block length -> _tail_offsets
 
     def init_state(self):
-        return dict(tail=torch.zeros(self.tail_len, dtype=self.dtype,
+        shape = (self.tail_len,) if self.rows is None \
+            else (self.tail_len, self.rows)
+        return dict(tail=torch.zeros(shape, dtype=self.dtype,
                                      device=self.device),
                     phase=scalar(0, torch.int64, self.device))
 
@@ -349,6 +362,26 @@ class FreqXlatingFIRDecimator(Block):
         return self._offsets[n]
 
     def apply(self, state, params, x: Stream):
+        if self.rows is None:
+            return self._apply_stream(state, params, x)
+        if x.data.dim() != 2 or x.data.shape[1] != self.rows:
+            raise ValueError(f"expected a block [n, {self.rows}], not "
+                             f"{tuple(x.data.shape)}")
+        if self._use_kernel():
+            return self._apply_stream(state, params, x)
+        tails, ys = [], []
+        for r in range(self.rows):
+            st, (y,) = self._apply_stream(
+                dict(tail=state["tail"][:, r].contiguous(),
+                     phase=state["phase"]), params,
+                x.like(x.data[:, r].contiguous(), count=x.count))
+            tails.append(st["tail"])
+            ys.append(y.data)
+        out = x.like(torch.stack(ys, dim=1), count=x.count // self.decim,
+                     rate_scale=1.0 / self.decim)
+        return dict(tail=torch.stack(tails, dim=1), phase=st["phase"]), (out,)
+
+    def _apply_stream(self, state, params, x: Stream):
         n = x.data.shape[0]
         phase, lo_inc = state["phase"], params["lo_inc"]
         phase_after = (phase + n * lo_inc) & U32_MASK
@@ -358,15 +391,18 @@ class FreqXlatingFIRDecimator(Block):
                                            phase, lo_inc)
             tail = _carry_tail(state["tail"], x.data, self.tail_len)
         elif self._use_kernel():
-            from grbaz_tpu_torch.ops.cuda.xlating_fir import \
-                xlating_fir_block
+            from grbaz_tpu_torch.ops.cuda.xlating_fir import (
+                xlating_fir_block, xlating_fir_rows)
             # one LO for the carried tail (samples -tl..-1) and the
-            # block's last m samples
+            # block's last m samples, and for every row of [n, M] rows
             tl = self.tail_len
             m = min(n, tl)
             lo = exact.lo_at(phase, lo_inc, self._tail_offsets(n))
-            y = xlating_fir_block(x.data, state["tail"] * lo[:tl].conj(),
-                                  self.h_rev_pad, self.decim, phase, lo_inc)
+            launch = xlating_fir_block
+            if x.data.dim() == 2:
+                lo, launch = lo[:, None], xlating_fir_rows
+            y = launch(x.data, state["tail"] * lo[:tl].conj(),
+                       self.h_rev_pad, self.decim, phase, lo_inc)
             tail = _carry_tail(state["tail"], x.data[n - m:] * lo[tl:], tl)
         else:
             lo, _ = exact.oscillator(n, phase, lo_inc)

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from grbaz_tpu_torch.ops.doa import signal_subspace
+from grbaz_tpu_torch.ops.doa import _scan, signal_subspace
 from grbaz_tpu_torch.parallel._collectives import dim, mesh_device, psum
 
 
@@ -37,11 +37,7 @@ def sharded_music_spectrum(x: torch.Tensor, steering: torch.Tensor,
         raise ValueError(f"snapshots and steering must lie on {dev}")
     navg = x.shape[0] * size
     r = psum(x.conj().transpose(0, 1) @ x, group) / navg
-    us = signal_subspace(r, n_signals)
-    a2 = torch.sum(steering.real ** 2 + steering.imag ** 2, dim=1)
-    proj = steering.conj() @ us
-    denom = a2 - torch.sum(proj.real ** 2 + proj.imag ** 2, dim=1)
-    return (1.0 / torch.clamp(denom, min=1e-20)).to(torch.float32)
+    return _scan(signal_subspace(r, n_signals), steering, "subspace")
 
 
 def simulate_snapshots(n_antennas: int, angles_deg, navg: int,
